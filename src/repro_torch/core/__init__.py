@@ -1,0 +1,50 @@
+"""repro_torch.core — the device-resident level-scheduled supernodal
+Cholesky of ``src/repro/core``, ported to PyTorch with hand-written CUDA
+kernels.  Imports neither JAX nor the reference package."""
+from repro_torch.core import counters
+from repro_torch.core.api import cholesky, symbolic_pipeline
+from repro_torch.core.buckets import (
+    bucket_shape,
+    bucket_shape_batch,
+    bucket_shape_fused,
+    syrk_tile,
+)
+from repro_torch.core.convert import storage_from_array, symbolic_from_arrays
+from repro_torch.core.device_store import (
+    DeviceGroupPlan,
+    DevicePanelStore,
+    GroupIndices,
+    build_device_plan,
+    device_plan,
+    device_solve,
+)
+from repro_torch.core.engines import DeviceEngine, resolve_device
+from repro_torch.core.merge import merge_supernodes
+from repro_torch.core.numeric import (
+    CholeskyFactor,
+    PanelStore,
+    init_panel_store,
+    init_panels,
+)
+from repro_torch.core.refine import refine_partition
+from repro_torch.core.relind import build_scatter_plan, scatter_plan
+from repro_torch.core.schedule import (
+    LevelSchedule,
+    build_schedule,
+    cached_schedule,
+    group_flop_stats,
+)
+from repro_torch.core.symbolic import SymbolicFactor, symbolic_analyze
+
+__all__ = [
+    "counters", "cholesky", "symbolic_pipeline",
+    "bucket_shape", "bucket_shape_batch", "bucket_shape_fused", "syrk_tile",
+    "storage_from_array", "symbolic_from_arrays",
+    "DeviceGroupPlan", "DevicePanelStore", "GroupIndices",
+    "build_device_plan", "device_plan", "device_solve",
+    "DeviceEngine", "resolve_device", "merge_supernodes",
+    "CholeskyFactor", "PanelStore", "init_panel_store", "init_panels",
+    "refine_partition", "build_scatter_plan", "scatter_plan",
+    "LevelSchedule", "build_schedule", "cached_schedule", "group_flop_stats",
+    "SymbolicFactor", "symbolic_analyze",
+]

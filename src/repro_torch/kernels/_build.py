@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
+repository root, named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  Nothing but the
+repository's sources, ``nvcc`` and the CUDA runtime is needed.  Nothing here
+runs at import time: the CPU tests import every module of the port and never
+build a library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+#: exported C functions of each library: name -> (argtypes, restype)
+SIGNATURES = {
+    "fused_factor_syrk": {
+        "fused_factor_syrk_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                                     _I),
+        "fused_factor_syrk_error": ([_I], ctypes.c_char_p),
+    },
+    "tri_inv": {
+        "tri_inv_lower_launch": ([_P, _P, _I, _I, _I, _P], _I),
+        "tri_inv_lower_error": ([_I], ctypes.c_char_p),
+    },
+}
+
+_LIBS: dict = {}
+
+
+def nvcc() -> str:
+    """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
+    then ``PATH``."""
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict:
+    """Compile every missing library in ``names`` (default: all), one
+    ``nvcc`` per source, all started together.  Returns the seconds each
+    build took (0.0 for a library already built); raises with the compiler
+    output if one fails.  The ``-Xptxas -v`` report is kept beside each
+    library as ``<library>.log``."""
+    names = list(SIGNATURES) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    secs = {}
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            secs[name] = 0.0
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(out.with_suffix(".so.log"), "w")
+        cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=log,
+                                        stderr=subprocess.STDOUT),
+                       log, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, log, tmp, out, t0) in procs.items():
+        rc = proc.wait()
+        log.close()
+        secs[name] = time.perf_counter() - t0
+        if rc != 0:
+            failed.append((name, out.with_suffix(".so.log").read_text()))
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"--- {n} ---\n{text}" for n, text in failed))
+    return secs
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(library_path(name)))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            f = getattr(lib, fn)
+            f.argtypes = argtypes
+            f.restype = restype
+        _LIBS[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, error_fn: str, code: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if code != 0:
+        msg = getattr(lib, error_fn)(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

@@ -1,0 +1,111 @@
+"""The port's kernel plain versions against the reference's Pallas kernels in
+interpret mode: ``fused_factor_syrk_ref`` against
+``repro.kernels.fused.fused_factor_syrk`` and ``tri_inv_lower_ref`` against
+``repro.kernels.ops.trsm_lln(L, I)``.  Tolerances are those of the
+reference's own kernel tests (tests/test_fused.py): 1e-12 on the factored
+panels and the inverse, 1e-11 on the update matrices."""
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+
+import repro.core  # noqa: E402,F401  (turns on jax x64, as the package does)
+from repro.kernels import ops as rops  # noqa: E402
+from repro.kernels.fused import fused_factor_syrk as pallas_fused  # noqa: E402
+
+from repro_torch.kernels import (  # noqa: E402
+    fused_factor_syrk,
+    fused_factor_syrk_ref,
+    tri_inv_lower,
+    tri_inv_lower_ref,
+)
+
+
+def _lanes(extents, Lp, Wp, garbage, seed=0):
+    """Raw staged lanes: SPD diagonal block (lower triangle) and tail rows;
+    pad cells zero, or random garbage when ``garbage``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for r, w in extents:
+        p = rng.standard_normal((Lp, Wp)) if garbage else np.zeros((Lp, Wp))
+        if w:
+            G = rng.standard_normal((w, w))
+            D = G @ G.T + w * np.eye(w)
+            lo = np.tril_indices(w)
+            p[:w, :w][lo] = D[lo]
+            p[Wp:Wp + r - w, :w] = rng.standard_normal((r - w, w))
+        out.append(p)
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("extents,Lp,Wp,nb,garbage", [
+    # ragged lanes, a width-1 lane and a pad lane, garbage in every pad cell
+    ([(20, 8), (16, 16), (9, 1), (0, 0)], 32, 16, 128, True),
+    # rows == w everywhere: mp == 0
+    ([(8, 8), (5, 5)], 8, 8, 128, False),
+    # width-1 lanes only
+    ([(6, 1), (1, 1), (3, 1)], 16, 8, 128, False),
+    # several slabs with a small nb, ragged widths across slab edges
+    ([(40, 20), (33, 32), (10, 3)], 64, 32, 8, True),
+    # odd tail: one full-width SYRK tile
+    ([(19, 3)], 21, 4, 128, False),
+])
+def test_fused_ref_matches_pallas(extents, Lp, Wp, nb, garbage):
+    panels = _lanes(extents, Lp, Wp, garbage)
+    rows = np.array([r for r, _ in extents], np.int32)
+    ws = np.array([w for _, w in extents], np.int32)
+    efp, eu = pallas_fused(panels, rows, ws, nb=nb, interpret=True)
+    fp, u = fused_factor_syrk_ref(torch.from_numpy(panels),
+                                  torch.from_numpy(rows), torch.from_numpy(ws))
+    assert fp.shape == (len(extents), Lp, Wp)
+    assert u.shape == (len(extents), Lp - Wp, Lp - Wp)
+    np.testing.assert_allclose(fp.numpy(), np.asarray(efp), rtol=1e-12,
+                               atol=1e-12)
+    np.testing.assert_allclose(u.numpy(), np.asarray(eu), rtol=1e-11,
+                               atol=1e-11)
+
+
+def test_fused_wrapper_on_cpu_is_the_plain_version():
+    extents, Lp, Wp = [(40, 20), (33, 32), (10, 3), (0, 0)], 64, 32
+    panels = torch.from_numpy(_lanes(extents, Lp, Wp, True, seed=3))
+    rows = torch.tensor([r for r, _ in extents], dtype=torch.int32)
+    ws = torch.tensor([w for _, w in extents], dtype=torch.int32)
+    before = fused_factor_syrk.launches
+    fp, u = fused_factor_syrk(panels, rows, ws)
+    fr, ur = fused_factor_syrk_ref(panels, rows, ws)
+    assert torch.equal(fp, fr) and torch.equal(u, ur)
+    assert fused_factor_syrk.launches == before  # no kernel launched
+    # the pad lane is an identity panel with a zero update
+    assert torch.equal(fp[3], torch.eye(Lp, Wp, dtype=torch.float64))
+    assert not u[3].any()
+    # strict upper triangle zero, garbage masked away
+    assert not torch.triu(fp[:, :Wp, :], 1).any()
+    clean = torch.from_numpy(_lanes(extents, Lp, Wp, False, seed=3))
+    for i, (r, w) in enumerate(extents):
+        keep = torch.zeros(Lp, Wp, dtype=torch.bool)
+        keep[:w, :w] = torch.ones(w, w, dtype=torch.bool).tril()
+        keep[Wp:Wp + r - w, :w] = True
+        clean[i][keep] = panels[i][keep]
+    fc, uc = fused_factor_syrk_ref(clean, rows, ws)
+    assert torch.equal(fc, fp) and torch.equal(uc, u)
+
+
+def _lower(W, seed):
+    rng = np.random.default_rng(seed)
+    L = np.tril(rng.standard_normal((W, W)) / np.sqrt(W))
+    L[np.arange(W), np.arange(W)] = 1.0 + np.abs(rng.standard_normal(W))
+    return L
+
+
+@pytest.mark.parametrize("W", [16, 40])
+def test_tri_inv_ref_matches_pallas(W):
+    Ls = np.stack([_lower(W, s) for s in range(2)])
+    # garbage above the diagonal must be ignored
+    Lg = Ls + np.triu(np.random.default_rng(9).standard_normal((W, W)), 1)
+    X = tri_inv_lower_ref(torch.from_numpy(Lg))
+    assert not torch.triu(X, 1).any()
+    for b in range(2):
+        ref = np.asarray(rops.trsm_lln(Ls[b], np.eye(W), backend="pallas"))
+        np.testing.assert_allclose(X[b].numpy(), ref, rtol=1e-12, atol=1e-12)
+    assert torch.equal(tri_inv_lower(torch.from_numpy(Lg)), X)
