@@ -5,33 +5,56 @@ card:
     python3 chip_smoke.py
 
 1. card info from ``nvidia-smi`` (fails without a CUDA card);
-2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together, into ``build/kernels/``);
-3. holds each kernel against its plain PyTorch version on group buffers at
-   the shapes of ``lap3d_40``'s fused schedule (the largest group, a
-   tail-heavy group, and a group with pad lanes and garbage pad cells), and
-   times kernel, plain version and a library yardstick;
-4. drives the main path — ``cholesky(A)`` then
+3. holds each kernel against its plain PyTorch version and times kernel,
+   plain version and a library yardstick: ``fused_factor_syrk`` and
+   ``tri_inv_lower`` on group buffers of ``lap3d_40``'s fused schedule (the
+   largest group, a tail-heavy group, a group with pad lanes and garbage pad
+   cells); ``potrf`` (with ``chol_tile``), ``trsm_rlt``, ``syrk_ln``,
+   ``gemm_nt`` and the one-panel ``fused_factor_syrk`` at the shapes the
+   sequential path gives them on ``lap3d_40`` (its widest supernode, its
+   largest tail, that tail's largest RLB block pair);
+4. drives the levels main path — ``cholesky(A)`` then
    ``F.solve(b, backend="device")`` with 1 and 64 right-hand sides — on
-   ``lap3d_40`` and ``kkt_256`` with the kernels' launch counters set to 0
-   just before, and checks residuals, dispatch and transfer counts, the
-   upload-before-dispatch order, the launch counts, and (kkt_256) the card's
-   factor against the port's own CPU run;
-5. prints a ``kernels`` JSON line, the card's name and power limit, and the
+   ``lap3d_40`` and ``kkt_256``, and checks residuals, dispatch and transfer
+   counts, the upload-before-dispatch order, the launch counts, and
+   (kkt_256) the card's factor against the port's own CPU run;
+5. drives the paper's sequential paths and the mixed levels path: (a) RL,
+   every supernode on the card through potrf, trsm_rlt and syrk_ln; (b) RL
+   at the paper's 600,000 threshold with the fused kernel; (c) RLB at
+   750,000, with and without batched transfers; (d) RLB on the card only,
+   unfused, on ``kkt_256``; (e) the mixed levels path at 600,000; (f) the
+   host-only RL baseline; (g) the device solve of (b)'s host factor; (h)
+   (a)'s factor against the port's CPU run of the same call.  Each checks
+   its residual, engine counts and per-kernel launches, and prints its
+   wall time;
+6. prints a ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
-Any failed check raises, so the script exits non-zero and prints no result
-line.  It imports nothing of JAX or of the reference package ``repro``.
+numpy's BLAS runs one thread here unless ``OPENBLAS_NUM_THREADS`` is set.
+
+Every path runs with the kernels' launch counters set to 0 just before it
+and read just after.  Any failed check raises, so the script exits non-zero
+and prints no result line.  It imports nothing of JAX or of the reference
+package ``repro``.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
+# numpy's threaded OpenBLAS spins on the host paths' many small supernodes
+# (scripts/seq_breakdown.py: the host-only RL of lap3d_40 ran about 10x
+# slower with the default threads than with one), so the host engine gets
+# its best setting unless the caller chose one; set before numpy loads
+os.environ.setdefault("OPENBLAS_NUM_THREADS", "1")
+
+import numpy as np  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -40,6 +63,11 @@ RESID_TOL = 1e-10   # ||A x - b|| / ||b||
 
 #: (fp64 tensor-core FLOP/s, device memory bytes/s) from NVIDIA's data sheets
 PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
+#: the paper's offload thresholds (rows * w) for RL and RLB on an A100
+PAPER_THRESHOLD = {"rl": 600_000, "rlb": 750_000}
+#: the port's kernel wrappers, as ``repro_torch.kernels.KERNELS`` lists them
+KERNEL_NAMES = ("fused_factor_syrk", "tri_inv_lower", "trsm_rlt", "chol_tile",
+                "syrk_ln", "gemm_nt")
 
 
 def card_info():
@@ -218,6 +246,153 @@ def kernel_phase(plan, peaks):
     return results
 
 
+def work_bound(flops: float, nbytes: float, peaks) -> tuple[float, str]:
+    """(least ms for the work, what bounds it) from the card's peaks."""
+    t_ops, t_bytes = flops / peaks[0], nbytes / peaks[1]
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def seq_kernel_phase(sym, peaks):
+    """potrf (the blocked routine), chol_tile, trsm_rlt, syrk_ln, gemm_nt
+    and fused_factor_syrk against their plain versions at the shapes the
+    sequential path gives them on this matrix: the widest supernode's
+    diagonal block, the largest tail (max m*w: its diagonal block, its TRSM
+    and its update SYRK) and that tail's largest RLB block pair; the fused
+    kernel on both supernodes' whole panels, as ``DeviceEngine(fused=True)``
+    passes them.  The seq path stages exact panels, so these are the
+    supernodes' own widths (a ragged Wp with no pad columns), not
+    buckets."""
+    import torch
+
+    from repro_torch.core.relind import supernode_blocks
+    from repro_torch.kernels import (
+        chol_tile,
+        chol_tile_ref,
+        fused_factor_syrk,
+        fused_factor_syrk_ref,
+        gemm_nt,
+        gemm_nt_ref,
+        ops,
+        potrf_ref,
+        syrk_ln,
+        syrk_ln_ref,
+        trsm_rlt,
+        trsm_rlt_ref,
+    )
+
+    ws = np.diff(sym.super_ptr)
+    ms = np.array([r.shape[0] for r in sym.rows]) - ws
+    s_wide = int(np.argmax(ws))
+    s_tail = int(np.argmax(ms * ws))
+    w, m = int(ws[s_tail]), int(ms[s_tail])
+    blocks = supernode_blocks(sym, s_tail)
+    nr, nc = max(((b2.k1 - b2.k0, b.k1 - b.k0)
+                  for i, b in enumerate(blocks) for b2 in blocks[i + 1:]),
+                 key=lambda p: p[0] * p[1])
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 1)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float64)
+
+    def spd_lower(W):  # a panel's diagonal block: lower triangle, zeros above
+        G = randn(W, W)
+        return torch.tril(G @ G.T / W
+                          + 2.0 * torch.eye(W, device=dev, dtype=torch.float64))
+
+    def sym_of(A):
+        return A + torch.tril(A, -1).mT
+
+    cases = []   # (kernel, label, fn, plain, library, flops, bytes)
+    for s_, tag in ((s_wide, "widest"), (s_tail, "largest_tail")):
+        W = int(ws[s_])
+        A = spd_lower(W)
+        S = sym_of(A)
+        cases.append(("potrf", f"{tag} W={W}", lambda A=A: ops.potrf(A),
+                      lambda A=A: potrf_ref(A),
+                      lambda S=S: torch.linalg.cholesky(S), W ** 3 / 3,
+                      8.0 * (W * (W + 1) / 2 + W * W)))
+    n = 128
+    A = spd_lower(n)
+    S = sym_of(A)
+    cases.append(("chol_tile", f"potrf tile n={n}",
+                  lambda A=A: chol_tile(A), lambda A=A: chol_tile_ref(A),
+                  lambda S=S: torch.linalg.cholesky(S),
+                  n ** 3 / 3, 8.0 * (n * (n + 1) / 2 + n * n)))
+    L = torch.linalg.cholesky(sym_of(spd_lower(w))).contiguous()
+    B = randn(m, w)
+    cases.append(("trsm_rlt", f"tail M={m} W={w}", lambda: trsm_rlt(L, B),
+                  lambda: trsm_rlt_ref(L, B),
+                  lambda: torch.linalg.solve_triangular(L.mT, B, upper=True,
+                                                        left=False),
+                  float(m) * w * w, 8.0 * (w * (w + 1) / 2 + 2 * m * w)))
+    T = 0.5 * randn(m, w)
+    cases.append(("syrk_ln", f"tail M={m} K={w}", lambda: syrk_ln(T),
+                  lambda: syrk_ln_ref(T), lambda: torch.tril(T @ T.mT),
+                  float(m) * m * w, 8.0 * (m * w + m * m)))
+    Ra, Rb = T[:nr], T[m - nc:]
+    cases.append(("gemm_nt", f"RLB pair M={nr} N={nc} K={w}",
+                  lambda: gemm_nt(Ra, Rb), lambda: gemm_nt_ref(Ra, Rb),
+                  lambda: Ra @ Rb.mT, 2.0 * nr * nc * w,
+                  8.0 * (nr * w + nc * w + nr * nc)))
+    for s_, tag in ((s_wide, "widest"), (s_tail, "largest_tail")):
+        # one exact panel (1, rows, w), as DeviceEngine.factor stages it
+        W, M = int(ws[s_]), int(ms[s_])
+        P = torch.cat([spd_lower(W), 0.5 * randn(M, W)])[None].contiguous()
+        ext = torch.tensor([[M + W], [W]], dtype=torch.int32, device=dev)
+        S = sym_of(P[0, :W])
+        Tt = P[0, W:].mT
+
+        def library(S=S, Tt=Tt):
+            L = torch.linalg.cholesky(S)
+            if Tt.shape[1]:
+                T = torch.linalg.solve_triangular(L, Tt, upper=False).mT
+                torch.tril(T @ T.mT)
+
+        cases.append((
+            "fused_factor_syrk", f"{tag} panel rows={M + W} w={W}",
+            lambda P=P, ext=ext: fused_factor_syrk(P, ext[0], ext[1]),
+            lambda P=P, ext=ext: fused_factor_syrk_ref(P, ext[0], ext[1]),
+            library, W ** 3 / 3 + float(M) * W * W + float(M) * M * W,
+            8.0 * (W * (W + 1) / 2 + M * W + (M + W) * W + M * M) + 8.0))
+    launch_of = {"chol_tile": chol_tile, "trsm_rlt": trsm_rlt,
+                 "syrk_ln": syrk_ln, "gemm_nt": gemm_nt,
+                 "fused_factor_syrk": fused_factor_syrk}
+    results: dict = {}
+    for name, label, fn, plain, library, flops, nbytes in cases:
+        counter = launch_of.get(name, chol_tile)
+        before = counter.launches
+        out = fn()
+        torch.cuda.synchronize()
+        per_call = counter.launches - before
+        ref = plain()
+        # the fused kernel returns (fp, u): the worst of the two
+        errs = [rel_err(o, r) for o, r in zip(
+            out if isinstance(out, tuple) else (out,),
+            ref if isinstance(ref, tuple) else (ref,))]
+        aerr, rerr = max(e[0] for e in errs), max(e[1] for e in errs)
+        if not rerr <= REL_TOL:
+            raise AssertionError(f"{name} {label}: rel err {rerr:.3e}")
+        if name == "syrk_ln" and torch.triu(out, 1).any():
+            raise AssertionError("syrk_ln wrote above the diagonal")
+        reps = 3 if flops > 1e9 else 10
+        ms_ = cuda_ms(fn, reps)
+        plain_ms = cuda_ms(plain, reps)
+        lib_ms = cuda_ms(library, reps)
+        bound, by = work_bound(flops, nbytes, peaks)
+        rec = dict(case=label, max_abs_err=aerr, rel_err=rerr, ms=ms_,
+                   plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
+                   bound_by=by, gflop=flops / 1e9,
+                   launches_per_call=per_call)
+        results.setdefault(name, []).append(rec)
+        print(f"kernel {name}", json.dumps(rec), flush=True)
+    torch.cuda.empty_cache()
+    return results
+
+
 def check_events(events, nlev: int) -> None:
     """Level k+1's upload is logged before level k's first dispatch."""
     ev = list(events)
@@ -287,6 +462,214 @@ def main_path(name: str, sym, Aperm, A, launches_of):
     return F, out
 
 
+def seq_expect(sym, thr: int, method: str, fused: bool, bt: bool = False):
+    """What a sequential run must count: per-kernel launches and engine
+    stats, from the supernodes with rows*w >= thr and the engine's protocol
+    (potrf: one chol_tile per NB = 128 columns and tri_inv_lower, gemm_nt,
+    syrk_ln per step below the last; trsm_rlt with its tri_inv_lower per
+    tail; RL one syrk_tail, RLB one syrk_ln per block and one gemm_nt per
+    block pair)."""
+    from repro_torch.core.relind import supernode_blocks
+    from repro_torch.kernels.potrf import NB
+
+    launches = dict.fromkeys(KERNEL_NAMES, 0)
+    st = {"transfers_in": 0, "transfers_out": 0, "device_calls": 0}
+    ndev = 0
+    for s in range(sym.nsuper):
+        w = sym.width(s)
+        m = sym.rows[s].shape[0] - w
+        if sym.size(s) < thr:
+            continue
+        ndev += 1
+        st["transfers_in"] += 1    # stage
+        st["device_calls"] += 1    # factor
+        st["transfers_out"] += 1   # read_panel
+        if fused:
+            launches["fused_factor_syrk"] += 1
+        else:
+            steps = -(-w // NB)
+            launches["chol_tile"] += steps
+            for k in ("tri_inv_lower", "gemm_nt", "syrk_ln"):
+                launches[k] += steps - 1
+            if m:
+                launches["trsm_rlt"] += 1
+                launches["tri_inv_lower"] += 1
+        if not m:
+            continue
+        if method == "rl":
+            st["transfers_out"] += 1
+            if not fused:
+                st["device_calls"] += 1
+                launches["syrk_ln"] += 1
+        else:
+            nb = len(supernode_blocks(sym, s))
+            pairs = nb * (nb - 1) // 2
+            launches["syrk_ln"] += nb
+            launches["gemm_nt"] += pairs
+            st["device_calls"] += nb + pairs
+            st["transfers_out"] += 1 if bt else nb + pairs
+    return launches, st, ndev
+
+
+def run_path(fns: dict, totals: dict, fn):
+    """Run one path with every launch counter at 0 just before it; return
+    (result, wall seconds, launches), adding the launches to ``totals``."""
+    import torch
+
+    for f in fns.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = {k: f.launches for k, f in fns.items()}
+    for k, v in got.items():
+        totals[k] += v
+    return out, secs, got
+
+
+def residual(A, x, b) -> float:
+    return float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
+
+
+def seq_phases(mats, fns, totals):
+    """Phases (a)-(h): the paper's sequential paths and the mixed levels
+    path through ``cholesky``, the host-only baseline, and the device solve
+    of a host factor."""
+    import torch
+
+    from repro_torch.core import (
+        DeviceEngine,
+        cached_schedule,
+        cholesky,
+        factorize_rl,
+    )
+    from repro_torch.core.relind import count_blas_calls
+
+    rng = np.random.default_rng(SEED)
+    out = {}
+
+    def check(label, F, A, eng, expect, secs, got, b):
+        want_l, want_st, ndev = expect
+        res = residual(A, F.solve(b), b)
+        rec = {"phase": label, "seconds": secs, "resid": res,
+               "supernodes_on_device": F.stats["supernodes_on_device"],
+               "supernodes_total": F.stats["supernodes_total"],
+               "launches": got,
+               "stats": None if eng is None else dict(eng.stats)}
+        print("seq", json.dumps(rec), flush=True)
+        if not (np.isfinite(res) and res <= RESID_TOL):
+            raise AssertionError(f"{label}: residual {res:.3e}")
+        if got != want_l:
+            raise AssertionError(f"{label}: launches {got} != {want_l}")
+        if F.stats["supernodes_on_device"] != ndev:
+            raise AssertionError(f"{label}: on device "
+                                 f"{F.stats['supernodes_on_device']} != {ndev}")
+        if eng is not None:
+            have = {k: eng.stats[k] for k in want_st}
+            if have != want_st:
+                raise AssertionError(f"{label}: stats {have} != {want_st}")
+        out[label] = rec
+        return rec
+
+    A, sym, Ap = mats["lap3d_40"]
+    b = rng.standard_normal(A.shape[0])
+    t_rl, t_rlb = PAPER_THRESHOLD["rl"], PAPER_THRESHOLD["rlb"]
+
+    def seq(method, thr, fused, bt=False, M=None):
+        A_, sym_, Ap_ = M or (A, sym, Ap)
+        eng = DeviceEngine(fused=fused)
+        F, secs, got = run_path(fns, totals, lambda: cholesky(
+            A_, method=method, schedule="seq", device_engine=eng,
+            offload_threshold=thr, batch_transfers=bt, sym=sym_,
+            Aperm=Ap_))
+        return F, eng, secs, got
+
+    # (a) RL, every supernode on the card, unfused: potrf/trsm_rlt/syrk_ln
+    Fa, eng, secs, got = seq("rl", 0, False)
+    check("a_rl_gpu_only_unfused", Fa, A, eng,
+          seq_expect(sym, 0, "rl", False), secs, got, b)
+    # (b) RL at the paper's 600,000, fused
+    Fb, eng, secs, got = seq("rl", t_rl, True)
+    check("b_rl_paper_threshold_fused", Fb, A, eng,
+          seq_expect(sym, t_rl, "rl", True), secs, got, b)
+    # (c) RLB at the paper's 750,000, per-block and batched transfers
+    for bt in (False, True):
+        F, eng, secs, got = seq("rlb", t_rlb, True, bt)
+        check(f"c_rlb_paper_threshold_bt{int(bt)}", F, A, eng,
+              seq_expect(sym, t_rlb, "rlb", True, bt), secs, got, b)
+        if F.stats["blas_calls"] != count_blas_calls(sym):
+            raise AssertionError("RLB blas_calls")
+        del F
+    # (d) RLB, every supernode on the card, unfused, on kkt_256
+    A2, sym2, Ap2 = mats["kkt_256"]
+    b2 = rng.standard_normal(A2.shape[0])
+    F, eng, secs, got = seq("rlb", 0, False, M=mats["kkt_256"])
+    check("d_rlb_gpu_only_unfused_kkt256", F, A2, eng,
+          seq_expect(sym2, 0, "rlb", False), secs, got, b2)
+    del F
+    # (e) the mixed levels path at 600,000: host assembly, device batches
+    eng = DeviceEngine()
+    F, secs, got = run_path(fns, totals, lambda: cholesky(
+        A, device_engine=eng, offload_threshold=t_rl, sym=sym, Aperm=Ap))
+    sched = cached_schedule(sym)
+    dev_groups = [bg for lg in sched.groups for bg in lg
+                  if any(sym.size(int(s)) >= t_rl for s in bg.ids)]
+    want = dict.fromkeys(KERNEL_NAMES, 0)
+    want["fused_factor_syrk"] = len(dev_groups)
+    n_tail = sum(1 for bg in dev_groups if bg.Lp > bg.Wp)
+    check("e_levels_mixed_rl_threshold", F, A, eng,
+          (want, {"transfers_in": len(dev_groups),
+                  "transfers_out": len(dev_groups) + n_tail,
+                  "device_calls": len(dev_groups)},
+           seq_expect(sym, t_rl, "rl", True)[2]), secs, got, b)
+    if F.stats["assembly"] != "host":
+        raise AssertionError("mixed path did not assemble on the host")
+    del F
+    # (f) the host-only baseline: no device engine, numpy only
+    F, secs, got = run_path(fns, totals, lambda: factorize_rl(sym, Ap))
+    check("f_rl_host_only", F, A, None,
+          (dict.fromkeys(KERNEL_NAMES, 0), {}, 0), secs, got, b)
+    d = float(np.max(np.abs(F.store.storage - Fb.store.storage)))
+    out["f_rl_host_only"]["vs_b_max_abs_diff"] = d
+    del F
+    # (g) device solve of (b)'s host factor: stages it, then solves
+    nrhs = 64
+    bb = rng.standard_normal((A.shape[0], nrhs))
+    xs, secs, got = run_path(fns, totals, lambda: (
+        Fb.solve(b, backend="device"), Fb.solve(bb, backend="device")))
+    groups = sum(len(lg) for lg in cached_schedule(sym, bucket="batch").groups)
+    res = max(residual(A, xs[0], b), residual(A, xs[1], bb))
+    t0 = time.perf_counter()
+    Fb.solve(b, backend="device")
+    rec = {"phase": "g_device_solve_of_host_factor", "seconds": secs,
+           "warm_solve1_s": time.perf_counter() - t0, "resid": res,
+           "groups": groups, "launches": got}
+    print("seq", json.dumps(rec), flush=True)
+    out["g"] = rec
+    if not res <= RESID_TOL or got["tri_inv_lower"] != groups or any(
+            v for k, v in got.items() if k != "tri_inv_lower"):
+        raise AssertionError(f"(g): residual {res:.3e}, launches {got}, "
+                             f"{groups} groups")
+    # (h) (a)'s card factor against the port's CPU run of the same call
+    t0 = time.perf_counter()
+    Fc = cholesky(A, method="rl", schedule="seq", offload_threshold=0,
+                  device_engine=DeviceEngine(device="cpu", fused=False),
+                  sym=sym, Aperm=Ap)
+    d = float(np.max(np.abs(Fa.store.storage - Fc.store.storage)))
+    scale = float(np.max(np.abs(Fc.store.storage)))
+    rec = {"phase": "h_a_vs_cpu", "cpu_seconds": time.perf_counter() - t0,
+           "max_abs_diff": d, "max_abs_L": scale}
+    print("seq", json.dumps(rec), flush=True)
+    out["h"] = rec
+    if not d <= 1e-10 * scale:
+        raise AssertionError(f"(h): card vs CPU {d:.3e} > 1e-10 * {scale:.3e}")
+    del Fa, Fb, Fc
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     smi, kind, peaks = card_info()
     sys.path.insert(0, str(ROOT / "src"))
@@ -294,11 +677,11 @@ def main() -> None:
 
     from repro_torch.core import cached_schedule, cholesky, device_plan
     from repro_torch.core.api import symbolic_pipeline
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.fused import fused_factor_syrk
-    from repro_torch.kernels.trsm import tri_inv_lower
+    from repro_torch.kernels import KERNELS, _build
     from repro_torch.sparse import make_suite_matrix
 
+    fns = {f.__name__: f for f in KERNELS}
+    assert tuple(fns) == KERNEL_NAMES, tuple(fns)
     t0 = time.perf_counter()
     secs = _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s "
@@ -323,48 +706,62 @@ def main() -> None:
     A, sym, Aperm = mats["lap3d_40"]
     plan = device_plan(sym, cached_schedule(sym, bucket="fused"))
     kres = kernel_phase(plan, peaks)
+    for name, recs in seq_kernel_phase(sym, peaks).items():
+        kres.setdefault(name, []).extend(recs)
+
+    totals = dict.fromkeys(KERNEL_NAMES, 0)
 
     def launches_of():
-        return {"fused_factor_syrk": fused_factor_syrk.launches,
-                "tri_inv_lower": tri_inv_lower.launches}
+        return {k: f.launches for k, f in fns.items()}
 
-    # main path: the counters start from 0 here
-    fused_factor_syrk.launches = 0
-    tri_inv_lower.launches = 0
-    outs = {}
-    for name in ("lap3d_40", "kkt_256"):
-        A, sym, Aperm = mats[name]
-        F, out = main_path(name, sym, Aperm, A, launches_of)
-        outs[name] = out
-        if name == "kkt_256":
-            Fc = cholesky(A, device="cpu", sym=sym, Aperm=Aperm)
-            d = float(np.max(np.abs(F.store.storage - Fc.store.storage)))
-            scale = float(np.max(np.abs(Fc.store.storage)))
-            out["cpu_max_abs_diff"] = d
-            out["cpu_max_abs_L"] = scale
-            if not d <= 1e-10 * scale:
-                raise AssertionError(f"kkt_256: card vs CPU factor {d:.3e} "
-                                     f"> 1e-10 * {scale:.3e}")
-        print("main", json.dumps(out), flush=True)
-        del F
-        torch.cuda.empty_cache()
-    counts = launches_of()
-    if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: "
+    # the levels main path: the counters start from 0 here
+    def levels_path():
+        outs = {}
+        for name in ("lap3d_40", "kkt_256"):
+            A, sym, Aperm = mats[name]
+            F, out = main_path(name, sym, Aperm, A, launches_of)
+            outs[name] = out
+            if name == "kkt_256":
+                Fc = cholesky(A, device="cpu", sym=sym, Aperm=Aperm)
+                d = float(np.max(np.abs(F.store.storage - Fc.store.storage)))
+                scale = float(np.max(np.abs(Fc.store.storage)))
+                out["cpu_max_abs_diff"] = d
+                out["cpu_max_abs_L"] = scale
+                if not d <= 1e-10 * scale:
+                    raise AssertionError(f"kkt_256: card vs CPU factor "
+                                         f"{d:.3e} > 1e-10 * {scale:.3e}")
+            print("main", json.dumps(out), flush=True)
+            del F
+            torch.cuda.empty_cache()
+        return outs
+
+    _, secs, counts = run_path(fns, totals, levels_path)
+    print(f"levels path launches: {counts} ({secs:.1f} s)", flush=True)
+    if not (counts["fused_factor_syrk"] > 0 and counts["tri_inv_lower"] > 0):
+        raise AssertionError(f"a kernel of the levels path was not launched: "
                              f"{counts}")
-    print(f"main path launches: {counts}")
+    seq_phases(mats, fns, totals)
+    print(f"launches over all paths: {totals}", flush=True)
+    if min(totals.values()) <= 0:
+        raise AssertionError(f"a kernel was never launched: {totals}")
 
-    src = {"fused_factor_syrk": ("src/repro_torch/kernels/csrc/"
-                                 "fused_factor_syrk.cu",
-                                 "src/repro/kernels/fused.py:251"),
-           "tri_inv_lower": ("src/repro_torch/kernels/csrc/tri_inv.cu",
-                             "src/repro/kernels/trsm.py:67")}
+    src = {
+        "fused_factor_syrk": ("fused_factor_syrk.cu", "fused.py:251"),
+        "tri_inv_lower": ("tri_inv.cu", "trsm.py:67"),
+        "trsm_rlt": ("trsm_rlt.cu", "trsm.py:67"),
+        "chol_tile": ("chol_tile.cu", "potrf.py:51"),
+        "syrk_ln": ("syrk_ln.cu", "syrk.py:42"),
+        "gemm_nt": ("gemm_nt.cu", "gemm.py:32"),
+    }
     kernels = []
-    for name, recs in kres.items():
+    for name in KERNEL_NAMES:
+        recs = kres[name]
         big = recs[0]
         kernels.append({
-            "name": name, "route": "cuda", "source": src[name][0],
-            "replaces": src[name][1], "launches": counts[name],
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/" + src[name][0],
+            "replaces": "src/repro/kernels/" + src[name][1],
+            "launches": totals[name],
             "max_abs_err": max(r["max_abs_err"] for r in recs),
             "ms": big["ms"], "plain_ms": big["plain_ms"],
             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],

@@ -1,8 +1,10 @@
-"""repro_torch.core — the device-resident level-scheduled supernodal
-Cholesky of ``src/repro/core``, ported to PyTorch with hand-written CUDA
-kernels.  Imports neither JAX nor the reference package."""
+"""repro_torch.core — the supernodal Cholesky of ``src/repro/core`` (the
+device-resident level-scheduled path, the paper's sequential RL/RLB offload
+paths and the mixed host/device levels path), ported to PyTorch with
+hand-written CUDA kernels.  Imports neither JAX nor the reference
+package."""
 from repro_torch.core import counters
-from repro_torch.core.api import cholesky, symbolic_pipeline
+from repro_torch.core.api import cholesky, solve, symbolic_pipeline
 from repro_torch.core.buckets import (
     bucket_shape,
     bucket_shape_batch,
@@ -22,7 +24,12 @@ from repro_torch.core.engines import DeviceEngine, resolve_device
 from repro_torch.core.merge import merge_supernodes
 from repro_torch.core.numeric import (
     CholeskyFactor,
+    HostEngine,
+    OffloadPolicy,
     PanelStore,
+    factorize_levels,
+    factorize_rl,
+    factorize_rlb,
     init_panel_store,
     init_panels,
 )
@@ -37,13 +44,15 @@ from repro_torch.core.schedule import (
 from repro_torch.core.symbolic import SymbolicFactor, symbolic_analyze
 
 __all__ = [
-    "counters", "cholesky", "symbolic_pipeline",
+    "counters", "cholesky", "solve", "symbolic_pipeline",
     "bucket_shape", "bucket_shape_batch", "bucket_shape_fused", "syrk_tile",
     "storage_from_array", "symbolic_from_arrays",
     "DeviceGroupPlan", "DevicePanelStore", "GroupIndices",
     "build_device_plan", "device_plan", "device_solve",
     "DeviceEngine", "resolve_device", "merge_supernodes",
-    "CholeskyFactor", "PanelStore", "init_panel_store", "init_panels",
+    "CholeskyFactor", "HostEngine", "OffloadPolicy", "PanelStore",
+    "factorize_levels", "factorize_rl", "factorize_rlb",
+    "init_panel_store", "init_panels",
     "refine_partition", "build_scatter_plan", "scatter_plan",
     "LevelSchedule", "build_schedule", "cached_schedule", "group_flop_stats",
     "SymbolicFactor", "symbolic_analyze",

@@ -270,6 +270,8 @@ class _DevGroup:
 #: the index arrays every group uploads, in upload order
 _KINDS = ("src", "lo", "hi", "gidx", "ppack", "upack", "rows_arr", "ws_arr",
           "cols", "tails")
+#: the ones a store of an already-factored storage needs (the solve's)
+_SOLVE_KINDS = ("gidx", "cols", "tails")
 
 
 class DevicePanelStore:
@@ -290,37 +292,49 @@ class DevicePanelStore:
     dispatch at a time with zero transfers; ``read_into`` brings the factor
     back in one transfer, and the packed factor stays resident for
     ``device_solve``.
+
+    ``factored=True`` stages an already-factored host storage instead (a
+    factor of the sequential or mixed paths, or one carried across from
+    another package): only the solve's index arrays and the packed factor
+    go up, in two transfers, and nothing is factored.
     """
 
     def __init__(self, eng, sym: SymbolicFactor, sched: LevelSchedule,
-                 host_storage: np.ndarray, *, staging: str | None = None):
+                 host_storage: np.ndarray, *, factored: bool = False,
+                 staging: str | None = None):
         self.eng, self.sym, self.sched = eng, sym, sched
         gp = device_plan(sym, sched)
         self.plan = gp
-        staging = "async" if staging is None else staging
+        if factored and staging is not None:
+            raise ValueError("staging applies only to a store that factors")
+        staging = "sync" if factored else (
+            "async" if staging is None else staging)
         if staging not in ("async", "sync"):
             raise ValueError(f"unknown staging {staging!r} (want 'async' or 'sync')")
         self.staging = staging
+        kinds = _SOLVE_KINDS if factored else _KINDS
         parts = [getattr(g, k).ravel()
-                 for lvl in gp.groups for g in lvl for k in _KINDS]
+                 for lvl in gp.groups for g in lvl for k in kinds]
         flat = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int32)
         dflat = eng.put(flat).long()
+        empty = dflat[0:0]
         self.groups: list = []
         pos = 0
         for lvl in gp.groups:
             row = []
             for g in lvl:
                 devs = {}
-                for k in _KINDS:
+                for k in kinds:
                     a = getattr(g, k)
                     devs[k] = dflat[pos:pos + a.size].reshape(a.shape)
                     pos += a.size
                 row.append(_DevGroup(
-                    src=devs["src"], lo=devs["lo"], hi=devs["hi"],
-                    gidx=devs["gidx"], ppack=devs["ppack"],
-                    upack=devs["upack"],
-                    rows=devs["rows_arr"].to(torch.int32),
-                    ws=devs["ws_arr"].to(torch.int32),
+                    src=devs.get("src", empty), lo=devs.get("lo", empty),
+                    hi=devs.get("hi", empty), gidx=devs["gidx"],
+                    ppack=devs.get("ppack", empty),
+                    upack=devs.get("upack", empty),
+                    rows=devs.get("rows_arr", empty).to(torch.int32),
+                    ws=devs.get("ws_arr", empty).to(torch.int32),
                     cols=devs["cols"], tails=devs["tails"],
                     off=g.off, base=g.base, lb=g.lb,
                 ))
@@ -329,11 +343,20 @@ class DevicePanelStore:
         self._packed: list = []
         self._solve_ready = False
         self.trash = None
+        self._host_storage = None
+        self._chunks: list = []
+        if factored:
+            # the factored panels, packed, plus the shared zero and one cells
+            packed = np.empty(gp.packed_total + 2)
+            packed[:-2] = host_storage[gp.cells_concat]
+            packed[-2:] = (0.0, 1.0)
+            self.factor_ext = eng.put(packed)
+            self.pool = None
+            return
         self.pool = torch.zeros(gp.pool_size, dtype=torch.float64,
                                 device=eng.device)
         lb = gp.level_base
         nlev = len(gp.groups)
-        self._host_storage = None
         if staging == "sync":
             whole = eng.put(host_storage[gp.cells_concat])
             self._chunks = [whole[lb[l]:lb[l + 1]] for l in range(nlev)]

@@ -1,11 +1,27 @@
-"""Device engine of the device-resident level-scheduled path, in PyTorch.
+"""Device engine in PyTorch: the reference's ``DeviceEngine``
+(``src/repro/core/engines.py``) without its jit program cache and fallback
+chain.  Three protocols:
 
-The subset of ``src/repro/core/engines.py::DeviceEngine`` that the main path
-runs: host<->device transfers (``put``/``put_async``/``get``), one fused
-program per (level x bucket) group (``fused_group``), the finalize-time
-inversion of each group's diagonal blocks (``invert_diag``), and one forward
-and one backward substitution program per level (``solve_fwd_level`` /
-``solve_bwd_level``).
+    per-op (sequential RL/RLB)  ``stage`` / ``factor`` / ``read_panel`` /
+                                ``syrk_tail`` / ``syrk_block`` /
+                                ``gemm_block`` / ``fetch`` / ``gather`` /
+                                ``release``: one supernode at a time, every
+                                transfer synchronous, as in the paper
+    batched (mixed levels)      ``stage_batch`` / ``factor_batch`` /
+                                ``read_panels_batch`` / ``syrk_tail_batch``
+                                / ``release_batch``: one (level x bucket)
+                                batch per call, host assembly
+    device-resident (levels)    ``put`` / ``put_async`` / ``get``,
+                                ``fused_group``, ``invert_diag``,
+                                ``solve_fwd_level`` / ``solve_bwd_level``
+
+A staged supernode is its exact (rows, w) panel: where the reference pads
+into a bucket for ``jit``, the port's kernels mask their ragged edges, so
+the RLB block rows ``[w + k0, w + k1)`` are plain slices.  ``stats`` count
+as the reference counts (one ``device_calls`` per factor, syrk_block and
+gemm_block, and per syrk_tail only when not fused; one transfer per stage,
+read and fetch), however many kernel launches a call makes; the bytes of a
+staged panel are its own, not a bucket's.
 
 Where the reference jits a program per bucket shape, the port runs eager
 PyTorch around its kernels.  The reference donates the update pool and the
@@ -25,6 +41,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core.buckets import bucket_shape
+from repro_torch.kernels import ops
 from repro_torch.kernels.fused import fused_factor_syrk
 from repro_torch.kernels.trsm import tri_inv_lower
 
@@ -54,9 +72,33 @@ class Upload:
     host: torch.Tensor | None = None
 
 
+class _Handle:
+    """A staged supernode: ``dev`` its (rows, w) panel on the device, ``u``
+    the update matrix a fused factor left behind."""
+    __slots__ = ("dev", "rows", "w", "u")
+
+    def __init__(self, dev, rows: int, w: int):
+        self.dev, self.rows, self.w, self.u = dev, rows, w, None
+
+
+class _BatchHandle:
+    """A staged batch of same-bucket panels: ``dev`` is (B, Lp, Wp) in the
+    bucket layout (diagonal block rows [0, w), tail rows [Wp, Wp + rows -
+    w)), ``u`` the (B, Lp - Wp, Lp - Wp) update matrices once factored."""
+    __slots__ = ("dev", "rows", "ws", "Wp", "u")
+
+    def __init__(self, dev, rows, ws, Wp):
+        self.dev, self.rows, self.ws, self.Wp = dev, rows, ws, Wp
+        self.u = None
+
+
 class DeviceEngine:
     """Engine that runs the dense supernode math on one device.
 
+    fused   the sequential path's ``factor`` runs POTRF + TRSM + SYRK as one
+            ``fused_factor_syrk`` call (beyond the paper, which calls
+            DPOTRF and DTRSM separately); False runs ``ops.factor_panel``
+            (potrf + trsm_rlt) and leaves the SYRK to ``syrk_tail``
     stats   transfers_in/out, bytes_in/out and device_calls, counted as the
             reference counts them
     events  ordered issue log of (tag, level) upload/dispatch events — the
@@ -66,8 +108,9 @@ class DeviceEngine:
 
     name = "device"
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, fused: bool = True):
         self.device = resolve_device(device)
+        self.fused = bool(fused)
         self.stats = {"transfers_in": 0, "transfers_out": 0,
                       "bytes_in": 0, "bytes_out": 0, "device_calls": 0}
         self.events: list = []
@@ -89,7 +132,8 @@ class DeviceEngine:
         """Host -> device transfer (counted), complete when it returns."""
         x = np.ascontiguousarray(x)
         self._count_in(x)
-        return torch.from_numpy(x).to(self.device)
+        # a copy on the CPU too: callers may write to what they staged
+        return torch.from_numpy(x).to(self.device, copy=True)
 
     def put_async(self, x: np.ndarray) -> Upload:
         """Host -> device transfer (counted) that overlaps device work: on a
@@ -125,12 +169,138 @@ class DeviceEngine:
         self.stats["bytes_out"] += out.nbytes
         return out
 
+    fetch = get  # per-result transfer (RLB's per-block mode)
+
+    def gather(self, xs) -> list:
+        """Device -> host transfer of many results as ONE transfer (RLB's
+        deferred mode): concatenated on the device, copied once, split."""
+        xs = list(xs)
+        flat = torch.cat([x.reshape(-1) for x in xs]).cpu().numpy()
+        self.stats["transfers_out"] += 1
+        self.stats["bytes_out"] += flat.nbytes
+        out, pos = [], 0
+        for x in xs:
+            out.append(flat[pos:pos + x.numel()].reshape(x.shape))
+            pos += x.numel()
+        return out
+
     def flush(self) -> None:
         """Wait for all queued device work."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    # -- factor ------------------------------------------------------------
+    # -- per-op protocol (sequential RL / RLB) -----------------------------
+    def stage(self, P: np.ndarray, w: int) -> _Handle:
+        """Host -> device transfer of one supernode panel (rows, w)."""
+        return _Handle(self.put(P), P.shape[0], w)
+
+    def factor(self, h: _Handle) -> None:
+        """POTRF + TRSM of a staged panel in place of ``h.dev``; with
+        ``fused``, one ``fused_factor_syrk`` call that also leaves the
+        update matrix for ``syrk_tail``."""
+        self.stats["device_calls"] += 1
+        if self.fused:
+            ext = torch.tensor([[h.rows], [h.w]], dtype=torch.int32,
+                               device=self.device)
+            fp, u = fused_factor_syrk(h.dev[None], ext[0], ext[1])
+            h.dev, h.u = fp[0], u[0]
+        else:
+            h.dev = ops.factor_panel(h.dev, h.w)
+
+    def read_panel(self, h: _Handle) -> np.ndarray:
+        """The factored panel back on the host (one synchronous transfer)."""
+        return self.get(h.dev)
+
+    def syrk_tail(self, h: _Handle) -> np.ndarray:
+        """RL's update matrix ``tril(T T^T)`` of the tail ``T`` on the host:
+        the one a fused factor left, else one ``syrk_ln`` call."""
+        u = h.u
+        if u is None:
+            self.stats["device_calls"] += 1
+            u = ops.syrk_ln(h.dev[h.w:])
+        return self.get(u)
+
+    def syrk_block(self, h: _Handle, k0: int, k1: int) -> torch.Tensor:
+        """RLB: ``tril(B B^T)`` for tail rows ``[k0, k1)``, left on the
+        device."""
+        self.stats["device_calls"] += 1
+        return ops.syrk_ln(h.dev[h.w + k0:h.w + k1])
+
+    def gemm_block(self, h: _Handle, kr0: int, kr1: int, kc0: int,
+                   kc1: int) -> torch.Tensor:
+        """RLB: ``R C^T`` for tail rows ``R = [kr0, kr1)`` and ``C = [kc0,
+        kc1)``, left on the device."""
+        self.stats["device_calls"] += 1
+        return ops.gemm_nt(h.dev[h.w + kr0:h.w + kr1],
+                           h.dev[h.w + kc0:h.w + kc1])
+
+    def release(self, h: _Handle) -> None:
+        h.dev = None
+        h.u = None
+
+    # -- batched protocol (mixed host/device levels) -----------------------
+    def stage_batch(self, Ps: list, ws: list) -> _BatchHandle:
+        """Stack same-bucket panels into ONE (B, Lp, Wp) buffer in the
+        reference's bucket layout and send it in one transfer.  The bucket
+        (not the batch's own extents) sets Lp, so whether the update
+        matrices are read back is decided as the reference decides it.  Pad
+        cells stay zero: the fused kernel rebuilds the identity extension
+        from the extents."""
+        shapes = {bucket_shape(P.shape[0], w) for P, w in zip(Ps, ws)}
+        if len(shapes) != 1:
+            raise ValueError(f"stage_batch: mixed buckets {sorted(shapes)}")
+        (Lp, Wp), = shapes
+        buf = np.zeros((len(Ps), Lp, Wp))
+        for i, (P, w) in enumerate(zip(Ps, ws)):
+            buf[i, :w, :w] = P[:w]
+            buf[i, Wp:Wp + P.shape[0] - w, :w] = P[w:]
+        return _BatchHandle(self.put(buf), [P.shape[0] for P in Ps],
+                            list(ws), Wp)
+
+    def factor_batch(self, hb: _BatchHandle) -> None:
+        """ONE ``fused_factor_syrk`` call over the batch."""
+        self.stats["device_calls"] += 1
+        ext = torch.tensor([hb.rows, hb.ws], dtype=torch.int32,
+                           device=self.device)
+        hb.dev, hb.u = fused_factor_syrk(hb.dev, ext[0], ext[1])
+
+    def read_panels_batch(self, hb: _BatchHandle) -> list:
+        """The factored panels back in one transfer, unpacked per lane."""
+        dv = hb.dev.cpu().numpy()
+        self.stats["transfers_out"] += 1
+        outs = []
+        for i, (rows, w) in enumerate(zip(hb.rows, hb.ws)):
+            out = np.empty((rows, w))
+            out[:w] = dv[i, :w, :w]
+            out[w:] = dv[i, hb.Wp:hb.Wp + rows - w, :w]
+            self.stats["bytes_out"] += out.nbytes
+            outs.append(out)
+        return outs
+
+    def syrk_tail_batch(self, hb: _BatchHandle) -> list:
+        """Each lane's (m, m) update matrix (``None`` without a tail), in
+        one transfer; no transfer when the bucket has no tail rows
+        (Lp == Wp)."""
+        if hb.u is None or hb.u.shape[1] == 0:
+            return [None] * len(hb.rows)
+        uv = hb.u.cpu().numpy()
+        self.stats["transfers_out"] += 1
+        outs = []
+        for i, (rows, w) in enumerate(zip(hb.rows, hb.ws)):
+            m = rows - w
+            if m == 0:
+                outs.append(None)
+                continue
+            u = uv[i, :m, :m]
+            self.stats["bytes_out"] += u.nbytes
+            outs.append(u)
+        return outs
+
+    def release_batch(self, hb: _BatchHandle) -> None:
+        hb.dev = None
+        hb.u = None
+
+    # -- device-resident factor ---------------------------------------------
     def fused_group(self, chunk: torch.Tensor, pool: torch.Tensor, g,
                     lvl: int = -1) -> torch.Tensor:
         """Run one (level x bucket) group end to end as ONE dispatch: slice

@@ -1,12 +1,29 @@
-"""Numeric supernodal right-looking Cholesky, device-resident level path.
+"""Numeric supernodal right-looking Cholesky: the RL and RLB variants, and
+the level-scheduled paths.
 
-Port of the main path of ``src/repro/core/numeric.py``: ``PanelStore`` keeps
-every supernode panel in ONE flat float64 array, ``_factorize_levels_device``
-factors it level by level on the device (see
-``repro_torch.core.device_store``) and reads it back once, and
-``CholeskyFactor`` solves with the factor on the host (the paper's
-per-supernode loop) or on the device (level-scheduled batched substitution
-against the still-resident factor).
+Port of ``src/repro/core/numeric.py``.  Both variants factor the current
+supernode with POTRF + TRSM, then push its updates right:
+
+  * RL    one SYRK computes the whole update matrix U = L_tail L_tail^T,
+          scattered into every ancestor through the precomputed scatter plan
+          (``PanelStore.scatter``);
+  * RLB   one SYRK (diagonal target) or GEMM (off-diagonal target) per block
+          pair, applied directly to the ancestor panels.
+
+The dense math goes through an *engine*: ``HostEngine`` (numpy/scipy, the
+paper's CPU-only baseline, copied verbatim from the reference) or the
+port's ``DeviceEngine`` for the supernodes ``OffloadPolicy`` sends to the
+card (the paper's GPU version); assembly stays on the host.
+
+``factorize_levels`` runs supernodes level by level up the etree, each
+(level x bucket) batch through the engines' batched protocol with host
+assembly, or — with every supernode offloaded — goes fully device-resident
+(``_factorize_levels_device``, see ``repro_torch.core.device_store``):
+the flat storage is staged once, every group is ONE fused dispatch, and the
+factor is read back once.  ``CholeskyFactor`` solves on the host (the
+paper's per-supernode loop) or on the device (level-scheduled batched
+substitution against the device-resident factor, staged from the host
+factor when there is none).
 """
 from __future__ import annotations
 
@@ -17,11 +34,96 @@ import scipy.linalg as sla
 import scipy.sparse as sp
 from torch.profiler import record_function
 
-from repro_torch.core.relind import scatter_plan
+from repro_torch.core.relind import (
+    ancestor_updates,
+    scatter_plan,
+    supernode_blocks,
+)
 from repro_torch.core.schedule import cached_schedule
 from repro_torch.core.symbolic import SymbolicFactor
 
 
+# ---------------------------------------------------------------------------
+# host engine: the paper's CPU-only baseline (BLAS/LAPACK via numpy/scipy)
+# ---------------------------------------------------------------------------
+class HostEngine:
+    name = "host"
+
+    def stage(self, P: np.ndarray, w: int):
+        return (P, w)
+
+    def factor(self, h) -> None:
+        P, w = h
+        Ld = np.linalg.cholesky(P[:w, :w])
+        P[:w, :w] = Ld
+        if P.shape[0] > w:
+            # TRSM: X = B L^{-T}  <=>  L Y = B^T, X = Y^T
+            P[w:] = sla.solve_triangular(Ld, P[w:].T, lower=True).T
+
+    def read_panel(self, h) -> np.ndarray:
+        return h[0]
+
+    def syrk_tail(self, h) -> np.ndarray:
+        P, w = h
+        B = P[w:]
+        return B @ B.T
+
+    def syrk_block(self, h, k0: int, k1: int) -> np.ndarray:
+        P, w = h
+        B = P[w + k0:w + k1]
+        return B @ B.T
+
+    def gemm_block(self, h, kr0: int, kr1: int, kc0: int, kc1: int) -> np.ndarray:
+        P, w = h
+        return P[w + kr0:w + kr1] @ P[w + kc0:w + kc1].T
+
+    def gather(self, xs) -> list:
+        return [np.asarray(x) for x in xs]
+
+    def fetch(self, x) -> np.ndarray:
+        return np.asarray(x)
+
+    def release(self, h) -> None:
+        pass
+
+    def flush(self) -> None:
+        pass
+
+    # -- batched protocol (level-scheduled path) ---------------------------
+    # Host batches are plain per-item loops over the scalar ops: numerically
+    # identical to the sequential path, and the protocol symmetry lets
+    # factorize_levels treat host and device engines uniformly.
+    def stage_batch(self, Ps: list, ws: list) -> list:
+        return [self.stage(P, w) for P, w in zip(Ps, ws)]
+
+    def factor_batch(self, hs: list) -> None:
+        for h in hs:
+            self.factor(h)
+
+    def read_panels_batch(self, hs: list) -> list:
+        return [self.read_panel(h) for h in hs]
+
+    def syrk_tail_batch(self, hs: list) -> list:
+        return [self.syrk_tail(h) if h[0].shape[0] > h[1] else None for h in hs]
+
+    def release_batch(self, hs: list) -> None:
+        pass
+
+
+@dataclass
+class OffloadPolicy:
+    """The paper's size threshold: supernodes with rows*width >= threshold run
+    on the accelerator, everything smaller stays on the host.
+    (Paper: 600,000 for RL, 750,000 for RLB on an A100.)"""
+    threshold: int = 600_000
+
+    def on_device(self, sym: SymbolicFactor, s: int) -> bool:
+        return sym.size(s) >= self.threshold
+
+
+# ---------------------------------------------------------------------------
+# factor container
+# ---------------------------------------------------------------------------
 @dataclass
 class CholeskyFactor:
     sym: SymbolicFactor
@@ -32,16 +134,26 @@ class CholeskyFactor:
     # the device for transfer-free solves
     store: object | None = None
     dstore: object | None = None
+    # the DeviceEngine that made this factor (None for a host-only one): a
+    # device solve without a resident factor stages the host factor with it
+    engine: object | None = None
 
-    def solve(self, b: np.ndarray, *, backend: str = "host") -> np.ndarray:
+    def solve(self, b: np.ndarray, *, backend: str = "host",
+              engine=None) -> np.ndarray:
         """Solve A x = b using P A P^T = L L^T.
 
         backend  'host' (per-supernode scipy loop, the paper's solve) or
                  'device' (level-scheduled batched substitution against the
-                 device-resident factor the factorization left behind).
+                 device-resident factor; a factor that has none — from the
+                 sequential or mixed paths, or from another package's
+                 storage — is staged once and stays resident for later
+                 solves).
+        engine   device backend only: the DeviceEngine to stage with when no
+                 device-resident factor exists (default: the factor's own
+                 engine, else a new one on the card).
         """
         if backend == "device":
-            return self.solve_device(b)
+            return self.solve_device(b, engine=engine)
         if backend != "host":
             raise ValueError(f"unknown backend {backend!r} (want 'host' or 'device')")
         sym = self.sym
@@ -72,15 +184,26 @@ class CholeskyFactor:
         x[sym.perm] = y
         return x[:, 0] if squeeze else x
 
-    def solve_device(self, b: np.ndarray) -> np.ndarray:
+    def solve_device(self, b: np.ndarray, *, engine=None) -> np.ndarray:
         """Level-scheduled batched solve on the device (see
-        repro_torch.core.device_store.device_solve)."""
-        from repro_torch.core.device_store import device_solve
+        repro_torch.core.device_store.device_solve).  Stages the factor on
+        first use when it is not already device-resident."""
+        from repro_torch.core.device_store import DevicePanelStore, device_solve
 
         if self.dstore is None:
-            raise ValueError(
-                "device solve needs the device-resident factor of a device "
-                "factorization; staging a host factor is not ported yet"
+            if self.store is None:
+                raise ValueError(
+                    "device solve needs PanelStore-backed panels; this factor "
+                    "was built without flat storage"
+                )
+            if engine is None:
+                engine = self.engine
+            if engine is None:
+                from repro_torch.core.engines import DeviceEngine
+                engine = DeviceEngine()
+            sched = cached_schedule(self.sym, bucket="batch")
+            self.dstore = DevicePanelStore(
+                engine, self.sym, sched, self.store.storage, factored=True
             )
         return device_solve(self.dstore, b)
 
@@ -133,11 +256,181 @@ class PanelStore:
             for s in range(sym.nsuper)
         ]
 
+    def scatter(self, s: int, U: np.ndarray) -> None:
+        """Apply supernode s's update matrix to every ancestor at once.
+        Destinations are unique (plus the don't-care trash cell), so plain
+        fancy indexing is exact."""
+        dst = self.plan.dst[s]
+        if dst.shape[0]:
+            self.storage[dst] -= U.ravel()
+
 
 def init_panel_store(sym: SymbolicFactor, Aperm: sp.csc_matrix) -> PanelStore:
     store = PanelStore(sym)
     _fill_panels(sym, Aperm, store.panels)
     return store
+
+
+def _pick_engine(engine, device_engine, policy, sym, s, stats):
+    if device_engine is not None and policy is not None and policy.on_device(sym, s):
+        stats["supernodes_on_device"] += 1
+        return device_engine
+    return engine
+
+
+# ---------------------------------------------------------------------------
+# RL
+# ---------------------------------------------------------------------------
+def factorize_rl(
+    sym: SymbolicFactor,
+    Aperm: sp.csc_matrix,
+    *,
+    engine=None,
+    device_engine=None,
+    policy: OffloadPolicy | None = None,
+) -> CholeskyFactor:
+    """The paper's RL loop, one supernode at a time.  Without a device
+    engine it is the host-only baseline."""
+    engine = engine or HostEngine()
+    store = init_panel_store(sym, Aperm)
+    panels = store.panels
+    stats = {"method": "rl", "supernodes_on_device": 0, "supernodes_total": sym.nsuper}
+
+    for s in range(sym.nsuper):
+        w = sym.width(s)
+        eng = _pick_engine(engine, device_engine, policy, sym, s, stats)
+        h = eng.stage(panels[s], w)          # transfer 1: CPU -> device
+        eng.factor(h)                        # POTRF + TRSM
+        out = eng.read_panel(h)              # transfer 2 (synchronous)
+        if out is not panels[s]:             # HostEngine factors in place
+            panels[s][...] = out
+        if sym.rows[s].shape[0] == w:
+            eng.release(h)
+            continue
+        U = np.asarray(eng.syrk_tail(h))     # SYRK; transfer 3: U back to CPU
+        eng.release(h)
+        # assembly on the host, as in the paper — one vectorized scatter per
+        # supernode through the precomputed plan
+        store.scatter(s, U)
+    if device_engine is not None:
+        device_engine.flush()
+    return CholeskyFactor(sym=sym, panels=panels, stats=stats, store=store,
+                          engine=device_engine)
+
+
+# ---------------------------------------------------------------------------
+# level-scheduled batched execution (see repro_torch.core.schedule)
+# ---------------------------------------------------------------------------
+def factorize_levels(
+    sym: SymbolicFactor,
+    Aperm: sp.csc_matrix,
+    *,
+    engine=None,
+    device_engine=None,
+    policy: OffloadPolicy | None = None,
+    max_batch: int = 256,
+    assembly: str = "auto",
+    staging: str | None = None,
+    guard: str | None = None,
+    guard_thr: float = 0.0,
+    guard_clamp: bool = False,
+) -> CholeskyFactor:
+    """Level-scheduled batched right-looking factorization.
+
+    Supernodes are processed level by level up the supernodal etree (each
+    level is an antichain), and each level's same-bucket supernodes go
+    through the engines' batched protocol:
+
+        hb = eng.stage_batch(panels, ws)   # ONE transfer per (level, bucket)
+        eng.factor_batch(hb)               # ONE fused POTRF+TRSM+SYRK call
+        eng.read_panels_batch(hb)          # ONE bulk read-back
+        eng.syrk_tail_batch(hb)            # ONE bulk read-back of updates
+
+    with the supernodes ``policy`` keeps on the host going through
+    ``engine``, and assembly (the scatter plan) on the host.
+
+    assembly  'auto'   — fully device-resident (``_factorize_levels_device``)
+                         when a device engine takes every supernode (a zero
+                         offload threshold); host assembly otherwise
+              'host'   — always assemble on the host
+              'device' — force the device-resident path (requires a device
+                         engine; the offload policy is ignored)
+    staging   device-resident path only: 'async' (default) or 'sync'
+    guard     the breakdown guard is not ported yet (ROADMAP queue 1,
+              item 6): anything but None raises NotImplementedError
+    """
+    if assembly not in ("auto", "host", "device"):
+        raise ValueError(
+            f"unknown assembly {assembly!r} (want 'auto', 'host', or 'device')"
+        )
+    if assembly == "device" and device_engine is None:
+        raise ValueError("assembly='device' requires a device engine")
+    if guard is not None:
+        raise NotImplementedError(
+            "guarded factorization is not ported yet (ROADMAP queue 1, item 6)"
+        )
+    if device_engine is not None and assembly != "host" and (
+        assembly == "device"
+        or (policy is not None and policy.threshold == 0)
+    ):
+        return _factorize_levels_device(
+            sym, Aperm, device_engine, max_batch=max_batch, staging=staging,
+        )
+    if staging is not None:
+        raise ValueError(
+            "staging applies only to the device-resident path (full offload "
+            "or assembly='device')"
+        )
+    engine = engine or HostEngine()
+    store = init_panel_store(sym, Aperm)
+    panels = store.panels
+    sched = cached_schedule(sym, max_batch=max_batch)
+    stats = {
+        "method": "levels",
+        "assembly": "host",
+        "supernodes_on_device": 0,
+        "supernodes_total": sym.nsuper,
+        "schedule": sched.batch_stats(),
+        "level_stats": [],
+    }
+
+    for lvl, lgroups in enumerate(sched.groups):
+        lrec = {"level": lvl, "supernodes": 0, "batches": 0, "max_batch": 0,
+                "on_device": 0}
+        for bg in lgroups:
+            if device_engine is not None and policy is not None:
+                on_dev = np.array([policy.on_device(sym, int(s)) for s in bg.ids])
+            else:
+                on_dev = np.zeros(bg.ids.shape[0], dtype=bool)
+            for eng, ids in ((device_engine, bg.ids[on_dev]),
+                             (engine, bg.ids[~on_dev])):
+                if ids.shape[0] == 0:
+                    continue
+                if eng is device_engine:
+                    stats["supernodes_on_device"] += int(ids.shape[0])
+                    lrec["on_device"] += int(ids.shape[0])
+                hb = eng.stage_batch(
+                    [panels[int(s)] for s in ids],
+                    [sym.width(int(s)) for s in ids],
+                )
+                eng.factor_batch(hb)
+                outs = eng.read_panels_batch(hb)
+                us = eng.syrk_tail_batch(hb)
+                eng.release_batch(hb)
+                for s, out, U in zip(ids, outs, us):
+                    s = int(s)
+                    if out is not panels[s]:
+                        panels[s][...] = out
+                    if U is not None:
+                        store.scatter(s, U)
+                lrec["batches"] += 1
+                lrec["max_batch"] = max(lrec["max_batch"], int(ids.shape[0]))
+                lrec["supernodes"] += int(ids.shape[0])
+        stats["level_stats"].append(lrec)
+    if device_engine is not None:
+        device_engine.flush()
+    return CholeskyFactor(sym=sym, panels=panels, stats=stats, store=store,
+                          engine=device_engine)
 
 
 def _factorize_levels_device(
@@ -205,4 +498,80 @@ def _factorize_levels_device(
         device_engine.flush()
     return CholeskyFactor(
         sym=sym, panels=store.panels, stats=stats, store=store, dstore=dstore,
+        engine=device_engine,
     )
+
+
+# ---------------------------------------------------------------------------
+# RLB
+# ---------------------------------------------------------------------------
+def factorize_rlb(
+    sym: SymbolicFactor,
+    Aperm: sp.csc_matrix,
+    *,
+    engine=None,
+    device_engine=None,
+    policy: OffloadPolicy | None = None,
+    batch_transfers: bool = False,
+) -> CholeskyFactor:
+    """RLB.  With a device engine, ``batch_transfers=False`` is the paper's
+    second version (one transfer + assembly per block update — low memory);
+    ``batch_transfers=True`` is the first version (keep every block update on
+    the device until the supernode is done, then transfer them all at once)."""
+    engine = engine or HostEngine()
+    store = init_panel_store(sym, Aperm)
+    panels = store.panels
+    stats = {
+        "method": "rlb", "supernodes_on_device": 0,
+        "supernodes_total": sym.nsuper, "blas_calls": 0,
+    }
+
+    for s in range(sym.nsuper):
+        w = sym.width(s)
+        eng = _pick_engine(engine, device_engine, policy, sym, s, stats)
+        h = eng.stage(panels[s], w)
+        eng.factor(h)
+        out = eng.read_panel(h)
+        if out is not panels[s]:  # in-place: panels are PanelStore views
+            panels[s][...] = out
+        t = sym.rows[s][w:]
+        if not t.shape[0]:
+            eng.release(h)
+            continue
+        blocks = supernode_blocks(sym, s)
+        relmap = {u.anc: u for u in ancestor_updates(sym, s)}
+        defer = batch_transfers and eng is not engine
+        pending: list = []
+        for bi, B in enumerate(blocks):
+            a = B.anc
+            nb = B.k1 - B.k0
+            r0, c0 = B.row_pos0, B.col_off0
+            S = eng.syrk_block(h, B.k0, B.k1)
+            stats["blas_calls"] += 1
+            if defer:
+                pending.append(((a, r0, None, c0, nb, True), S))
+            else:
+                panels[a][r0:r0 + nb, c0:c0 + nb] -= np.tril(eng.fetch(S))
+            for B2 in blocks[bi + 1:]:
+                G = eng.gemm_block(h, B2.k0, B2.k1, B.k0, B.k1)
+                stats["blas_calls"] += 1
+                u = relmap[a]
+                rpos = u.rel_rows[B2.k0 - u.k0: B2.k1 - u.k0]
+                if defer:
+                    pending.append(((a, None, rpos, c0, nb, False), G))
+                else:
+                    panels[a][rpos[:, None], np.arange(c0, c0 + nb)[None, :]] -= eng.fetch(G)
+        eng.release(h)
+        if pending:
+            # paper's RLB version 1: one big transfer, then host assembly
+            results = eng.gather(x for _, x in pending)
+            for (tgt, _), R in zip(pending, results):
+                a, r0, rpos, c0, nb, diag = tgt
+                if diag:
+                    panels[a][r0:r0 + nb, c0:c0 + nb] -= np.tril(R)
+                else:
+                    panels[a][rpos[:, None], np.arange(c0, c0 + nb)[None, :]] -= R
+    if device_engine is not None:
+        device_engine.flush()
+    return CholeskyFactor(sym=sym, panels=panels, stats=stats, store=store,
+                          engine=device_engine)

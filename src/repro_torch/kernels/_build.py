@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into its own shared library under ``build/kernels/`` at the
-repository root, named by a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Nothing but the
-repository's sources, ``nvcc`` and the CUDA runtime is needed.  Nothing here
+repository root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``, which a source includes by its quoted name) and the flags,
+so an edited source or header is rebuilt and an unchanged one is reused.
+Nothing but the repository's sources, ``nvcc`` and the CUDA runtime is
+needed.  Nothing here
 runs at import time: the CPU tests import every module of the port and never
 build a library.
 """
@@ -35,6 +37,22 @@ SIGNATURES = {
         "tri_inv_lower_launch": ([_P, _P, _I, _I, _I, _P], _I),
         "tri_inv_lower_error": ([_I], ctypes.c_char_p),
     },
+    "gemm_nt": {
+        "gemm_nt_launch": ([_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P], _I),
+        "gemm_nt_error": ([_I], ctypes.c_char_p),
+    },
+    "syrk_ln": {
+        "syrk_ln_launch": ([_P, _I, _P, _I, _I, _I, _I, _P], _I),
+        "syrk_ln_error": ([_I], ctypes.c_char_p),
+    },
+    "chol_tile": {
+        "chol_tile_launch": ([_P, _I, _P, _I, _I, _I, _P], _I),
+        "chol_tile_error": ([_I], ctypes.c_char_p),
+    },
+    "trsm_rlt": {
+        "trsm_rlt_launch": ([_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P], _I),
+        "trsm_rlt_error": ([_I], ctypes.c_char_p),
+    },
 }
 
 _LIBS: dict = {}
@@ -53,8 +71,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(FLAGS).encode())
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -95,10 +115,13 @@ def build(names=None) -> dict:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, built first if needed."""
+    """The loaded library ``name``.  If it is not built yet, every missing
+    library is built at once (in parallel), so a program waits for one
+    build and not for one per kernel it reaches."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
+        if not library_path(name).exists():
+            build()
         lib = ctypes.CDLL(str(library_path(name)))
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             f = getattr(lib, fn)
@@ -113,3 +136,24 @@ def check(lib: ctypes.CDLL, error_fn: str, code: int, what: str) -> None:
     if code != 0:
         msg = getattr(lib, error_fn)(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def check_matrix(name: str, t, device) -> None:
+    """Raise unless ``t`` is a 2-D float64 tensor on ``device`` whose rows
+    are contiguous (unit column stride, row stride at least the width and
+    below 2**31): the layout the kernels take, with the row stride as their
+    leading dimension, so row and column slices of a contiguous matrix pass
+    without a copy."""
+    import torch
+
+    if t.device != device or t.dim() != 2 or t.dtype != torch.float64:
+        raise ValueError(f"{name} must be a 2-D float64 tensor on {device}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} must have contiguous rows")
+    if not (t.shape[1] <= t.stride(0) < 2 ** 31) and t.shape[0] > 1:
+        raise ValueError(f"{name} has an unsupported row stride {t.stride(0)}")
+
+
+def ld(t) -> int:
+    """Leading dimension (row stride) of a matrix passed ``check_matrix``."""
+    return max(t.stride(0), t.shape[1], 1)

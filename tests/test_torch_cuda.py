@@ -5,18 +5,30 @@ one).  Run on the card with
 
 Each CUDA kernel is held against its plain PyTorch version at small odd
 shapes the main path does not reach (partial 64-wide blocks, Wp not a power
-of two, garbage pad cells), to 1e-10 relative; the wrappers' argument checks
-raise; and a small factorization on the card matches the CPU run."""
+of two, garbage pad cells and garbage above the diagonal, strided row and
+column slices), to 1e-10 relative; the wrappers' argument checks raise; and
+small factorizations on the card — the levels path and the sequential and
+mixed routes — match the CPU run."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import DeviceEngine, cholesky
 from repro_torch.kernels import (
+    chol_tile,
+    chol_tile_ref,
     fused_factor_syrk,
     fused_factor_syrk_ref,
+    gemm_nt,
+    gemm_nt_ref,
+    ops,
+    potrf_ref,
+    syrk_ln,
+    syrk_ln_ref,
     tri_inv_lower,
     tri_inv_lower_ref,
+    trsm_rlt,
+    trsm_rlt_ref,
 )
 from repro_torch.sparse import kkt_like, laplacian_3d
 
@@ -103,4 +115,131 @@ def test_small_factor_on_card_matches_cpu(card, make):
     assert np.abs(Fg.store.storage - Fc.store.storage).max() <= 1e-10 * scale
     b = np.random.default_rng(0).standard_normal((A.shape[0], 2))
     x = Fg.solve(b, backend="device")
+    assert np.linalg.norm(A @ x - b) <= 1e-10 * np.linalg.norm(b)
+
+
+def _randn(shape, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g, dtype=torch.float64).to(dev)
+
+
+def _spd_garbage(W, seed, dev):
+    """SPD lower triangle with garbage above the diagonal."""
+    G = _randn((W, W), seed, dev)
+    A = G @ G.mT / W + 2 * torch.eye(W, dtype=torch.float64, device=dev)
+    return torch.tril(A) + torch.triu(_randn((W, W), seed + 1, dev), 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (63, 7, 65), (137, 260, 90),
+                                   (300, 129, 2)])
+def test_gemm_nt_kernel_matches_plain(card, m, k, n):
+    big = _randn((m + n + 3, k + 5), m, card)
+    for a, b in ((big[:m, :k], big[m:m + n, 2:k + 2]),   # strided slices
+                 (big[:m, :k].contiguous(), big[3:n + 3, 5:].contiguous())):
+        before = gemm_nt.launches
+        c = gemm_nt(a, b)
+        torch.cuda.synchronize()
+        assert gemm_nt.launches == before + 1
+        assert _rel(c, gemm_nt_ref(a, b)) <= 1e-10
+
+
+@pytest.mark.parametrize("m,k", [(1, 3), (65, 1), (137, 260), (200, 64)])
+def test_syrk_ln_kernel_matches_plain(card, m, k):
+    a = _randn((m, k + 3), k, card)[:, 1:k + 1]
+    c = syrk_ln(a)
+    torch.cuda.synchronize()
+    assert _rel(c, syrk_ln_ref(a)) <= 1e-10
+    assert not torch.triu(c, 1).any()
+
+
+@pytest.mark.parametrize("n", [1, 5, 64, 100, 128])
+def test_chol_tile_kernel_matches_plain(card, n):
+    A = _spd_garbage(n + 2, n, card)[1:n + 1, 1:n + 1]  # strided, ld n + 2
+    L = chol_tile(A)
+    torch.cuda.synchronize()
+    assert _rel(L, chol_tile_ref(A)) <= 1e-10
+    assert not torch.triu(L, 1).any()
+
+
+@pytest.mark.parametrize("W", [129, 200, 300])
+def test_potrf_on_card_matches_plain(card, W):
+    A = _spd_garbage(W, W, card)
+    L = ops.potrf(A)
+    torch.cuda.synchronize()
+    assert _rel(L, potrf_ref(A)) <= 1e-10
+    assert not torch.triu(L, 1).any()
+
+
+@pytest.mark.parametrize("m,w", [(1, 1), (70, 64), (137, 200), (5, 130)])
+def test_trsm_rlt_kernel_matches_plain(card, m, w):
+    S = torch.tril(_spd_garbage(w, w, card))
+    # torch's cholesky returns a column-major L; the kernel takes rows
+    L = torch.linalg.cholesky(S + torch.tril(S, -1).mT).contiguous()
+    Lg = L + torch.triu(_randn((w, w), 7, card), 1)  # never read
+    B = _randn((m, w), m, card)
+    before = (trsm_rlt.launches, tri_inv_lower.launches)
+    X = trsm_rlt(Lg, B)
+    torch.cuda.synchronize()
+    assert (trsm_rlt.launches, tri_inv_lower.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert _rel(X, trsm_rlt_ref(L, B)) <= 1e-10
+    C = _randn((w, 9), 3, card)
+    assert _rel(ops.trsm_lln(Lg, C),
+                torch.linalg.solve_triangular(L, C, upper=False)) <= 1e-10
+    assert _rel(ops.trsm_llt(Lg, C),
+                torch.linalg.solve_triangular(L.mT, C, upper=True)) <= 1e-10
+
+
+@pytest.mark.parametrize("rows,w", [(300, 150), (40, 40), (500, 7)])
+def test_factor_panel_on_card_matches_cpu(card, rows, w):
+    P = _randn((rows, w), rows, card)
+    P[:w] = torch.tril(_spd_garbage(w, w, card))
+    got = ops.factor_panel(P, w)
+    want = ops.factor_panel(P.cpu(), w)
+    torch.cuda.synchronize()
+    assert _rel(got.cpu(), want) <= 1e-10
+
+
+def test_new_wrappers_check_their_arguments(card):
+    a = torch.zeros((4, 3), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError):
+        gemm_nt(a, a.float())
+    with pytest.raises(ValueError):
+        gemm_nt(a, a[:, :2])                     # inner dimensions differ
+    with pytest.raises(ValueError):
+        syrk_ln(a.mT)                            # columns not contiguous
+    with pytest.raises(ValueError):
+        syrk_ln(a[None])                         # not 2-D
+    with pytest.raises(ValueError):
+        chol_tile(torch.zeros((129, 129), dtype=torch.float64, device=card))
+    with pytest.raises(ValueError):
+        chol_tile(a)                             # not square
+    with pytest.raises(ValueError):
+        trsm_rlt(a[:3, :3], a[:, :2])            # B is not (M, 3)
+    with pytest.raises(ValueError):
+        trsm_rlt(a[:3], a[:, :3].float())
+
+
+@pytest.mark.parametrize("kw", [
+    {"schedule": "seq", "method": "rl"},
+    {"schedule": "seq", "method": "rl", "fused": False},
+    {"schedule": "seq", "method": "rlb", "fused": False},
+    {"schedule": "seq", "method": "rlb", "batch_transfers": True},
+    {"offload_threshold": 2000},
+])
+def test_seq_and_mixed_factor_on_card_match_cpu(card, kw):
+    kw = dict(kw)
+    fused = kw.pop("fused", True)
+    A = laplacian_3d(10)
+    Fg = cholesky(A, device_engine=DeviceEngine(device=card, fused=fused),
+                  **kw)
+    Fc = cholesky(A, device_engine=DeviceEngine(device="cpu", fused=fused),
+                  sym=Fg.sym, **kw)
+    assert Fg.stats == Fc.stats
+    scale = max(np.abs(p).max() for p in Fc.panels)
+    for pg, pc in zip(Fg.panels, Fc.panels):
+        assert np.abs(pg - pc).max() <= 1e-10 * scale
+    b = np.random.default_rng(1).standard_normal(A.shape[0])
+    x = Fg.solve(b, backend="device")   # stages the host factor on the card
+    assert Fg.dstore.eng.device.type == "cuda"
     assert np.linalg.norm(A @ x - b) <= 1e-10 * np.linalg.norm(b)

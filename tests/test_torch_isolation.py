@@ -71,10 +71,11 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 def test_unported_routes_raise_not_implemented():
+    # the sequential RL/RLB and mixed-offload routes run now
+    # (tests/test_torch_seq.py::test_formerly_unported_routes_run)
     A = laplacian_2d(6)
-    for kw in ({"schedule": "seq"}, {"guard": "raise"}, {"plan": object()},
-               {"offload_threshold": 600_000}, {"method": "rlb"},
-               {"method": "rlb", "schedule": "seq"}):
+    for kw in ({"guard": "raise"}, {"plan": object()},
+               {"schedule": "seq", "guard": "perturb"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             cholesky(A, device="cpu", **kw)
     with pytest.raises(ValueError):

@@ -1,9 +1,15 @@
 """The port's kernel plain versions against the reference's Pallas kernels in
 interpret mode: ``fused_factor_syrk_ref`` against
-``repro.kernels.fused.fused_factor_syrk`` and ``tri_inv_lower_ref`` against
-``repro.kernels.ops.trsm_lln(L, I)``.  Tolerances are those of the
-reference's own kernel tests (tests/test_fused.py): 1e-12 on the factored
-panels and the inverse, 1e-11 on the update matrices."""
+``repro.kernels.fused.fused_factor_syrk``, ``tri_inv_lower_ref`` against
+``repro.kernels.ops.trsm_lln(L, I)``, and the sequential path's
+``gemm_nt_ref``, ``syrk_ln_ref``, ``trsm_rlt_ref`` (also through the port's
+``ops.trsm_lln`` / ``ops.trsm_llt`` routes), ``potrf_ref``, the blocked
+``potrf`` routine and ``ops.factor_panel`` against the Pallas kernels behind
+``repro.kernels.ops``.  Tolerances are those of the reference's own kernel
+tests (tests/test_fused.py, tests/test_kernels.py): 1e-12 on the factored
+panels and the inverse, 1e-11 on the update matrices, and rtol 1e-11 /
+atol 1e-10 on the fp64 sweeps.  Ragged shapes (not multiples of 64 or 128)
+are the point: the port's kernels mask edges where the reference pads."""
 import numpy as np
 import pytest
 import torch
@@ -15,10 +21,19 @@ from repro.kernels import ops as rops  # noqa: E402
 from repro.kernels.fused import fused_factor_syrk as pallas_fused  # noqa: E402
 
 from repro_torch.kernels import (  # noqa: E402
+    chol_tile,
     fused_factor_syrk,
     fused_factor_syrk_ref,
+    gemm_nt,
+    gemm_nt_ref,
+    ops,
+    potrf_ref,
+    syrk_ln,
+    syrk_ln_ref,
     tri_inv_lower,
     tri_inv_lower_ref,
+    trsm_rlt,
+    trsm_rlt_ref,
 )
 
 
@@ -109,3 +124,82 @@ def test_tri_inv_ref_matches_pallas(W):
         ref = np.asarray(rops.trsm_lln(Ls[b], np.eye(W), backend="pallas"))
         np.testing.assert_allclose(X[b].numpy(), ref, rtol=1e-12, atol=1e-12)
     assert torch.equal(tri_inv_lower(torch.from_numpy(Lg)), X)
+
+
+FP64 = {"rtol": 1e-11, "atol": 1e-10}
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _spd_lower(W, seed):
+    """An SPD matrix given by its lower triangle, garbage above it."""
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((W, W))
+    A = M @ M.T / W + 2.0 * np.eye(W)
+    return np.tril(A), np.tril(A) + np.triu(rng.standard_normal((W, W)), 1)
+
+
+@pytest.mark.parametrize("m,k,n", [(137, 260, 90), (257, 130, 257)])
+def test_gemm_nt_ref_matches_pallas(m, k, n):
+    rng = np.random.default_rng(m)
+    a, b = rng.standard_normal((m, k)), rng.standard_normal((n, k))
+    want = np.asarray(rops.gemm_nt(a, b, backend="pallas"))
+    got = gemm_nt_ref(_t(a), _t(b))
+    np.testing.assert_allclose(got.numpy(), want, **FP64)
+    before = gemm_nt.launches
+    assert torch.equal(gemm_nt(_t(a), _t(b)), got)
+    assert gemm_nt.launches == before  # the CPU runs the plain version
+
+
+@pytest.mark.parametrize("m,k", [(137, 260), (257, 130)])
+def test_syrk_ln_ref_matches_pallas(m, k):
+    a = np.random.default_rng(m).standard_normal((m, k))
+    want = np.asarray(rops.syrk_ln(a, backend="pallas"))
+    got = syrk_ln_ref(_t(a))
+    np.testing.assert_allclose(got.numpy(), want, **FP64)
+    assert not torch.triu(got, 1).any()
+    assert torch.equal(syrk_ln(_t(a)), got)
+
+
+@pytest.mark.parametrize("m,w", [(137, 200), (257, 130)])
+def test_trsm_rlt_ref_matches_pallas(m, w):
+    rng = np.random.default_rng(w)
+    L = np.tril(rng.standard_normal((w, w))) + w * np.eye(w)
+    Lg = L + np.triu(rng.standard_normal((w, w)), 1)  # never read
+    B = rng.standard_normal((m, w))
+    want = np.asarray(rops.trsm_rlt(L, B, backend="pallas"))
+    got = trsm_rlt_ref(_t(Lg), _t(B))
+    np.testing.assert_allclose(got.numpy(), want, **FP64)
+    assert torch.equal(trsm_rlt(_t(Lg), _t(B)), got)
+    # the left-side routes: transpose (L X = C) and persymmetric flip
+    # (L^T X = C), C (w, 60)
+    C = rng.standard_normal((w, 60))
+    for port, name in ((ops.trsm_lln, "trsm_lln"), (ops.trsm_llt, "trsm_llt")):
+        want = np.asarray(getattr(rops, name)(L, C, backend="pallas"))
+        np.testing.assert_allclose(port(_t(Lg), _t(C)).numpy(), want, **FP64)
+
+
+@pytest.mark.parametrize("w", [200, 130])
+def test_potrf_matches_pallas(w):
+    A, Ag = _spd_lower(w, w)
+    want = np.asarray(rops.potrf(A + np.tril(A, -1).T, backend="pallas"))
+    np.testing.assert_allclose(potrf_ref(_t(Ag)).numpy(), want, **FP64)
+    # the blocked routine on the CPU (two 128-column steps, a ragged last
+    # tile) runs the kernels' plain versions
+    before = chol_tile.launches
+    L = ops.potrf(_t(Ag))
+    np.testing.assert_allclose(L.numpy(), want, **FP64)
+    assert not torch.triu(L, 1).any()
+    assert chol_tile.launches == before
+
+
+def test_factor_panel_matches_pallas():
+    rows, w = 300, 150
+    A, Ag = _spd_lower(w, 5)
+    tail = np.random.default_rng(6).standard_normal((rows - w, w))
+    want = np.asarray(rops.factor_panel(np.vstack([A, tail]), w,
+                                        backend="pallas"))
+    got = ops.factor_panel(_t(np.vstack([Ag, tail])), w)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-10, atol=1e-9)
