@@ -5,7 +5,7 @@ card:
     python3 chip_smoke.py
 
 1. card info from ``nvidia-smi`` (fails without a CUDA card);
-2. builds the six CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together, into ``build/kernels/``);
 3. holds each kernel against its plain PyTorch version and times kernel,
    plain version and a library yardstick: ``fused_factor_syrk`` and
@@ -29,7 +29,21 @@ card:
    (a)'s factor against the port's CPU run of the same call.  Each checks
    its residual, engine counts and per-kernel launches, and prints its
    wall time;
-6. prints a ``kernels`` JSON line, the card's name and power limit, and the
+6. holds the guarded fused kernel against its plain version (lap3d_40's
+   widest group, its most batched group, and the kkt_saddle_64 groups
+   whose lanes clamp; each at thr = 0 and at the perturb threshold) beside
+   the unguarded kernel's time on the same buffers;
+7. drives the breakdown guard through ``cholesky(guard=...)``: ``raise`` on
+   lap3d_40 against ``guard="off"``, and the reference's breakdown suite
+   (kkt_saddle_64 under raise, perturb and shift; neumann_64 and gram_400
+   under perturb; badscale_64 under raise), the raise and perturb calls
+   against the port's CPU run of the same call, with refined device
+   solves;
+8. drives ``cholesky_many`` on four shifted copies of lap3d_40 (guard off
+   and raise) against four ``cholesky`` calls, its batched solve, and the
+   warm ``cholesky(A, plan=PlanCache().get(A))`` against the warm call
+   without a plan;
+9. prints a ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 numpy's BLAS runs one thread here unless ``OPENBLAS_NUM_THREADS`` is set.
@@ -58,6 +72,9 @@ import numpy as np  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
+#: torch device of the made-up kernel inputs (the card; "cpu" only to
+#: rehearse the script's control flow against the plain versions)
+DEV = "cuda"
 REL_TOL = 1e-10     # kernel vs plain version, relative to max |plain|
 RESID_TOL = 1e-10   # ||A x - b|| / ||b||
 
@@ -67,7 +84,7 @@ PEAKS = {"sxm": (67e12, 3.35e12), "pcie": (51e12, 2.0e12)}
 PAPER_THRESHOLD = {"rl": 600_000, "rlb": 750_000}
 #: the port's kernel wrappers, as ``repro_torch.kernels.KERNELS`` lists them
 KERNEL_NAMES = ("fused_factor_syrk", "tri_inv_lower", "trsm_rlt", "chol_tile",
-                "syrk_ln", "gemm_nt")
+                "syrk_ln", "gemm_nt", "fused_factor_syrk_guarded")
 
 
 def card_info():
@@ -123,7 +140,7 @@ def make_group(g, garbage: bool, gen):
     import torch
 
     Bp, Lp, Wp = g.gidx.shape
-    dev = torch.device("cuda")
+    dev = torch.device(DEV)
     p = (torch.randn((Bp, Lp, Wp), generator=gen, device=dev,
                      dtype=torch.float64) if garbage
          else torch.zeros((Bp, Lp, Wp), device=dev, dtype=torch.float64))
@@ -670,15 +687,348 @@ def seq_phases(mats, fns, totals):
     return out
 
 
+def nonfinite_err(x, ref, live=None) -> tuple[float, float]:
+    """``rel_err`` over the cells finite in ``ref``; raises unless ``x`` is
+    nonfinite exactly where ``ref`` is (a broken lane is NaN on both).
+    ``live`` restricts both to a lane's live cells (the other cells of a
+    broken lane are unspecified)."""
+    import torch
+
+    if live is not None:
+        x, ref = x[live], ref[live]
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(x), fin):
+        raise AssertionError("nonfinite cells differ from the plain version")
+    if not fin.any():
+        return 0.0, 0.0
+    return rel_err(x[fin], ref[fin])
+
+
+def capture_clamping_groups(A, sym, thr: float):
+    """The group buffers of a ``guard="perturb"`` card factorization of
+    ``A`` whose lanes clamp: the engine's guarded kernel calls are recorded
+    (inputs cloned before the call) for this one run only."""
+    import torch
+
+    import repro_torch.core.engines as engines
+    from repro_torch.core import cholesky
+
+    seen = []
+    real = engines.fused_factor_syrk
+
+    def record(buf, rows, ws, **kw):
+        saved = (buf.clone(), rows.clone(), ws.clone())
+        out = real(buf, rows, ws, **kw)
+        if kw.get("guard") and bool((out[2][:, 1] > 0).any()):
+            seen.append(saved)
+        return out
+
+    engines.fused_factor_syrk = record
+    try:
+        F = cholesky(A, sym=sym, guard="perturb")
+    finally:
+        engines.fused_factor_syrk = real
+    torch.cuda.synchronize()
+    if not seen or F.guard_report.n_perturbed <= 0:
+        raise AssertionError("kkt_saddle_64: no clamping group recorded")
+    return seen
+
+
+def guarded_kernel_phase(plan, kkt_groups, thr_lap: float, thr_kkt: float,
+                         peaks):
+    """The guarded fused kernel against its plain version, with the
+    unguarded kernel's time on the same buffers beside it (the cost of
+    detection): lap3d_40's widest group (Bp = 1, 2048 x 2048) and its most
+    batched group, made as ``kernel_phase`` makes them, and the recorded
+    kkt_saddle_64 groups whose lanes clamp; each at thr = 0 and at the
+    matrix's perturb threshold.  fp and u at REL_TOL (NaN where the plain
+    version has NaN), status counts and flags equal, min d^2 and magnitude
+    at rtol 1e-10."""
+    import torch
+
+    from repro_torch.kernels.fused import (
+        fused_factor_syrk,
+        fused_factor_syrk_guarded,
+        fused_factor_syrk_guarded_ref,
+        live_cells,
+    )
+
+    groups = [g for lvl in plan.groups for g in lvl]
+    largest = max(groups, key=lambda g: (g.Lp * g.Wp, g.Wp))
+    batched = max(groups, key=lambda g: (g.B, g.Lp * g.Wp))
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(SEED + 2)
+    cases = []
+    for label, g in (("lap3d_40 widest", largest),
+                     ("lap3d_40 most batched", batched)):
+        p, rows, ws = make_group(g, True, gen)
+        cases.append((label, p, rows, ws, thr_lap, fused_work(g)))
+    for i, (p, rows, ws) in enumerate(kkt_groups):
+        ext = dict(B=int((ws > 0).sum()), rows_arr=rows.cpu().numpy(),
+                   ws_arr=ws.cpu().numpy(), gidx=p)
+        work = fused_work(type("G", (), ext))
+        cases.append((f"kkt_saddle_64 clamping group {i}", p, rows, ws,
+                      thr_kkt, work))
+    out = []
+    for label, p, rows, ws, thr_p, (flops, nbytes) in cases:
+        Bp, Lp, Wp = p.shape
+        for thr in (0.0, thr_p):
+            fp, u, st = fused_factor_syrk_guarded(p, rows, ws, thr)
+            torch.cuda.synchronize()
+            fr, ur, sr = fused_factor_syrk_guarded_ref(p, rows, ws, thr)
+            afp, efp = nonfinite_err(fp, fr, live_cells(rows, ws, Lp, Wp,
+                                                        p.device))
+            au, eu = nonfinite_err(u, ur)
+            if not (efp <= REL_TOL and eu <= REL_TOL):
+                raise AssertionError(f"guarded {label} thr={thr}: rel err "
+                                     f"fp {efp:.3e} u {eu:.3e}")
+            if not torch.equal(st[:, 1:3], sr[:, 1:3]):
+                raise AssertionError(f"guarded {label} thr={thr}: clamp "
+                                     f"counts or flags differ")
+            if not torch.allclose(st[:, [0, 3]], sr[:, [0, 3]], rtol=1e-10,
+                                  atol=0, equal_nan=True):
+                raise AssertionError(f"guarded {label} thr={thr}: min d^2 "
+                                     f"or magnitude differ")
+            big = Lp * Wp >= 1 << 21
+            reps = 3 if big else 10
+            ms = cuda_ms(lambda: fused_factor_syrk_guarded(p, rows, ws, thr),
+                         reps)
+            plain_ms = cuda_ms(
+                lambda: fused_factor_syrk_guarded_ref(p, rows, ws, thr), 1)
+            unguarded_ms = cuda_ms(lambda: fused_factor_syrk(p, rows, ws),
+                                   reps)
+            bound, by = work_bound(flops, nbytes, peaks)
+            rec = dict(case=label, thr=thr, Bp=Bp, Lp=Lp, Wp=Wp,
+                       max_abs_err=max(afp, au), rel_err=max(efp, eu),
+                       n_clamped=int(st[:, 1].sum()),
+                       nonfinite_lanes=int(st[:, 2].sum()), ms=ms,
+                       plain_ms=plain_ms, unguarded_ms=unguarded_ms,
+                       library_ms=None, bound_ms=bound, bound_by=by,
+                       gflop=flops / 1e9)
+            out.append(rec)
+            print("kernel fused_factor_syrk_guarded", json.dumps(rec),
+                  flush=True)
+        del p, fp, u, st, fr, ur, sr
+        torch.cuda.empty_cache()
+    return out
+
+
+def clamps(rep) -> list:
+    return [(q["supernode"], q["n_clamped"]) for q in rep.perturbations]
+
+
+def guard_phases(mats, suite):
+    """The breakdown guard through ``cholesky(guard=...)`` on the card, each
+    breakdown-suite call against the port's CPU run of the same call."""
+    import torch
+
+    from repro_torch.core import BreakdownError, DeviceEngine, cholesky
+
+    out = {}
+    A, sym, Ap = mats["lap3d_40"]
+    n = A.shape[0]
+    b = np.random.default_rng(SEED).standard_normal(n)
+    secs, engs, facs = {}, {}, {}
+    for guard in ("off", "raise", "off", "raise"):  # warm, interleaved
+        eng = DeviceEngine()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F = cholesky(A, device_engine=eng, sym=sym, Aperm=Ap, guard=guard)
+        secs.setdefault(guard, []).append(time.perf_counter() - t0)
+        engs[guard], facs[guard] = eng, F
+    rep = facs["raise"].guard_report
+    tr = {g: (e.stats["transfers_in"], e.stats["transfers_out"],
+              e.stats["device_calls"]) for g, e in engs.items()}
+    res = residual(A, facs["raise"].solve(b, backend="device"), b)
+    rec = {"phase": "guard_raise_lap3d_40", "off_s": secs["off"],
+           "raise_s": secs["raise"], "min_pivot": rep.min_pivot,
+           "ok": rep.ok, "resid": res, "transfers_calls": tr}
+    print("guard", json.dumps(rec), flush=True)
+    out["lap3d_40"] = rec
+    if not (rep.ok and rep.min_pivot > 0 and not rep.perturbations
+            and res <= RESID_TOL and tr["off"] == tr["raise"]):
+        raise AssertionError(f"guard raise on lap3d_40: {rec}")
+    del facs, engs
+    torch.cuda.empty_cache()
+
+    def both(name, guard, devs=("cuda", "cpu")):
+        """(card result, CPU result): a factor or the BreakdownError."""
+        A_, sym_ = suite[name]
+        res_ = []
+        for dev in devs:
+            t0 = time.perf_counter()
+            try:
+                r = cholesky(A_, device=dev, sym=sym_, guard=guard)
+            except BreakdownError as e:
+                r = e
+            torch.cuda.synchronize()
+            res_.append((r, time.perf_counter() - t0))
+        return res_
+
+    (eg, tg), (ec, tc) = both("kkt_saddle_64", "raise")
+    ok = (isinstance(eg, BreakdownError) and isinstance(ec, BreakdownError)
+          and eg.report.first_broken == ec.report.first_broken
+          and [q["supernode"] for q in eg.report.broken]
+          == [q["supernode"] for q in ec.report.broken])
+    rec = {"phase": "kkt_saddle_64 raise", "card_s": tg, "cpu_s": tc,
+           "first_broken": getattr(getattr(eg, "report", None),
+                                   "first_broken", None),
+           "n_broken": len(getattr(getattr(eg, "report", None), "broken",
+                                   []))}
+    print("guard", json.dumps(rec), flush=True)
+    out["kkt_raise"] = rec
+    if not ok:
+        raise AssertionError(f"kkt_saddle_64 raise: card {eg!r}, cpu {ec!r}")
+    rng = np.random.default_rng(SEED + 3)
+    for name, guard in (("kkt_saddle_64", "perturb"), ("neumann_64",
+                        "perturb"), ("gram_400", "perturb"),
+                        ("badscale_64", "raise"), ("kkt_saddle_64", "shift")):
+        A_, _ = suite[name]
+        # shift needs no CPU run: the CPU tests hold it to the reference
+        runs = both(name, guard, ("cuda",) if guard == "shift"
+                    else ("cuda", "cpu"))
+        (Fg, tg), (Fc, tc) = runs[0], runs[-1]
+        for F in (Fg, Fc):
+            if isinstance(F, BreakdownError):
+                raise AssertionError(f"{name} {guard}: {F}")
+        rg, rcpu = Fg.guard_report, Fc.guard_report
+        bb = (np.asarray(A_ @ rng.standard_normal(A_.shape[0]))
+              if name in ("neumann_64", "gram_400")
+              else rng.standard_normal(A_.shape[0]))
+        t0 = time.perf_counter()
+        x = Fg.solve(bb, backend="device")
+        solve_s = time.perf_counter() - t0
+        res = residual(A_, x, bb)
+        rec = {"phase": f"{name} {guard}", "card_s": tg,
+               "cpu_s": None if Fc is Fg else tc,
+               "n_perturbed": rg.n_perturbed, "shift": rg.shift,
+               "shifts": rg.shifts, "refined_solve_s": solve_s,
+               "gmres_steps": len(rg.ir_history[-1]) if rg.ir_history else 0,
+               "resid": res, "min_pivot": rg.min_pivot}
+        print("guard", json.dumps(rec), flush=True)
+        out[f"{name} {guard}"] = rec
+        if guard == "perturb":
+            good = (rg.ok and rg.n_perturbed > 0 and res <= RESID_TOL
+                    and clamps(rg) == clamps(rcpu))
+        elif guard == "shift":
+            good = rg.ok and rg.shift > 0 and rg.shifts > 0 and \
+                res <= RESID_TOL
+        else:
+            good = rg.ok and rcpu.ok and not rg.perturbations
+        if not good:
+            raise AssertionError(f"{name} {guard}: {rec}, cpu clamps "
+                                 f"{clamps(rcpu)}, card {clamps(rg)}")
+    return out
+
+
+def many_and_plan_phases(mats):
+    """``cholesky_many`` on four shifted copies of lap3d_40 (guard off and
+    raise) against four ``cholesky`` calls through the same plan, its
+    batched solve, and the warm plan fast path against the warm call
+    without a plan."""
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.core import (
+        DeviceEngine,
+        PlanCache,
+        cholesky,
+        cholesky_many,
+    )
+
+    A, sym, Ap = mats["lap3d_40"]
+    n = A.shape[0]
+    out = {}
+    t0 = time.perf_counter()
+    plan = PlanCache().get(A)
+    out["plan_build_s"] = time.perf_counter() - t0
+    As = [sp.csc_matrix(A + s * sp.eye(n)) for s in (0.0, 0.5, 1.0, 2.0)]
+    eng = DeviceEngine()
+    cholesky(A, plan=plan, device_engine=eng)            # warm both paths
+    singles, t_single = [], []
+    for rep in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fs = [cholesky(Ai, plan=plan, device_engine=eng) for Ai in As]
+        torch.cuda.synchronize()
+        t_single.append(time.perf_counter() - t0)
+        if rep == 0:
+            singles = [f.store.storage for f in fs]
+        del fs
+    rng = np.random.default_rng(SEED + 4)
+    b = rng.standard_normal((4, n, 2))
+    for guard in ("off", "raise"):
+        t_many = []
+        for _ in range(2):
+            e = DeviceEngine()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            BF = cholesky_many(As, plan=plan, device_engine=e, guard=guard)
+            torch.cuda.synchronize()
+            t_many.append(time.perf_counter() - t0)
+        groups = BF.stats["schedule"]["batches"]
+        scale = max(float(np.max(np.abs(s_))) for s_ in singles)
+        diff = max(float(np.max(np.abs(BF.storage[i] - singles[i])))
+                   for i in range(4))
+        calls = e.stats["device_calls"]
+        t0 = time.perf_counter()
+        x = BF.solve(b)
+        solve_s = time.perf_counter() - t0
+        res = max(residual(As[i], x[i], b[i]) for i in range(4))
+        rec = {"phase": f"cholesky_many M=4 guard={guard}",
+               "many_s": t_many, "four_single_s": t_single,
+               "speedup": min(t_single) / min(t_many),
+               "device_calls": calls, "groups": groups,
+               "max_abs_diff_vs_single": diff, "max_abs_L": scale,
+               "solve_s": solve_s, "resid": res}
+        print("many", json.dumps(rec), flush=True)
+        out[guard] = rec
+        if not (diff <= 1e-10 * scale and calls == groups
+                and res <= RESID_TOL):
+            raise AssertionError(f"cholesky_many guard={guard}: {rec}")
+        if guard == "raise" and not all(r.ok for r in BF.guard_reports):
+            raise AssertionError("cholesky_many raise: a report is not ok")
+        del BF, x
+        torch.cuda.empty_cache()
+    t_plan, t_sym = [], []
+    for _ in range(2):                                    # interleaved
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F0 = cholesky(A, sym=sym, Aperm=Ap, device_engine=eng)
+        torch.cuda.synchronize()
+        t_sym.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        F = cholesky(A, plan=plan, device_engine=eng)
+        torch.cuda.synchronize()
+        t_plan.append(time.perf_counter() - t0)
+    diff = float(np.max(np.abs(F.store.storage - F0.store.storage)))
+    scale = float(np.max(np.abs(F0.store.storage)))
+    rec = {"phase": "plan fast path lap3d_40", "plan_s": t_plan,
+           "no_plan_s": t_sym, "plan_build_s": out["plan_build_s"],
+           "max_abs_diff_vs_no_plan": diff}
+    print("plan", json.dumps(rec), flush=True)
+    out["plan"] = rec
+    if not diff <= 1e-10 * scale:
+        raise AssertionError(f"plan path factor differs: {rec}")
+    return out
+
+
+
 def main() -> None:
     smi, kind, peaks = card_info()
     sys.path.insert(0, str(ROOT / "src"))
     import torch
 
-    from repro_torch.core import cached_schedule, cholesky, device_plan
+    from repro_torch.core import (
+        cached_schedule,
+        cholesky,
+        device_plan,
+        perturb_threshold,
+    )
     from repro_torch.core.api import symbolic_pipeline
     from repro_torch.kernels import KERNELS, _build
     from repro_torch.sparse import make_suite_matrix
+    from repro_torch.sparse.gen import BREAKDOWN_SUITE
 
     fns = {f.__name__: f for f in KERNELS}
     assert tuple(fns) == KERNEL_NAMES, tuple(fns)
@@ -708,6 +1058,18 @@ def main() -> None:
     kres = kernel_phase(plan, peaks)
     for name, recs in seq_kernel_phase(sym, peaks).items():
         kres.setdefault(name, []).extend(recs)
+    suite = {}
+    for name in BREAKDOWN_SUITE:
+        As = make_suite_matrix(name)
+        suite[name] = (As, symbolic_pipeline(As)[0])
+    thr = {name: perturb_threshold(float(np.max(np.abs(M.diagonal()))))
+           for name, M in (("lap3d_40", A),
+                           ("kkt_saddle_64", suite["kkt_saddle_64"][0]))}
+    kkt_groups = capture_clamping_groups(*suite["kkt_saddle_64"],
+                                         thr["kkt_saddle_64"])
+    kres["fused_factor_syrk_guarded"] = guarded_kernel_phase(
+        plan, kkt_groups, thr["lap3d_40"], thr["kkt_saddle_64"], peaks)
+    del kkt_groups
 
     totals = dict.fromkeys(KERNEL_NAMES, 0)
 
@@ -741,6 +1103,19 @@ def main() -> None:
         raise AssertionError(f"a kernel of the levels path was not launched: "
                              f"{counts}")
     seq_phases(mats, fns, totals)
+    _, secs, counts = run_path(fns, totals, lambda: guard_phases(mats, suite))
+    print(f"guard path launches: {counts} ({secs:.1f} s)", flush=True)
+    if not (counts["fused_factor_syrk_guarded"] > 0
+            and counts["tri_inv_lower"] > 0):
+        raise AssertionError(f"a kernel of the guard path was not launched: "
+                             f"{counts}")
+    _, secs, counts = run_path(fns, totals, lambda: many_and_plan_phases(mats))
+    print(f"multi-matrix and plan path launches: {counts} ({secs:.1f} s)",
+          flush=True)
+    if not (counts["fused_factor_syrk"] > 0
+            and counts["fused_factor_syrk_guarded"] > 0):
+        raise AssertionError(f"a kernel of the multi-matrix path was not "
+                             f"launched: {counts}")
     print(f"launches over all paths: {totals}", flush=True)
     if min(totals.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {totals}")
@@ -752,6 +1127,7 @@ def main() -> None:
         "chol_tile": ("chol_tile.cu", "potrf.py:51"),
         "syrk_ln": ("syrk_ln.cu", "syrk.py:42"),
         "gemm_nt": ("gemm_nt.cu", "gemm.py:32"),
+        "fused_factor_syrk_guarded": ("fused_factor_syrk.cu", "fused.py:251"),
     }
     kernels = []
     for name in KERNEL_NAMES:

@@ -1,17 +1,26 @@
 """repro_torch.core — the supernodal Cholesky of ``src/repro/core`` (the
 device-resident level-scheduled path, the paper's sequential RL/RLB offload
-paths and the mixed host/device levels path), ported to PyTorch with
-hand-written CUDA kernels.  Imports neither JAX nor the reference
-package."""
+paths, the mixed host/device levels path, the breakdown guard, the plan
+cache and multi-matrix factorization), ported to PyTorch with hand-written
+CUDA kernels.  Imports neither JAX nor the reference package."""
 from repro_torch.core import counters
-from repro_torch.core.api import cholesky, solve, symbolic_pipeline
+from repro_torch.core.api import (
+    cholesky,
+    cholesky_many,
+    solve,
+    symbolic_pipeline,
+)
 from repro_torch.core.buckets import (
     bucket_shape,
     bucket_shape_batch,
     bucket_shape_fused,
     syrk_tile,
 )
-from repro_torch.core.convert import storage_from_array, symbolic_from_arrays
+from repro_torch.core.convert import (
+    cached_plan_from_arrays,
+    storage_from_array,
+    symbolic_from_arrays,
+)
 from repro_torch.core.device_store import (
     DeviceGroupPlan,
     DevicePanelStore,
@@ -21,19 +30,35 @@ from repro_torch.core.device_store import (
     device_solve,
 )
 from repro_torch.core.engines import DeviceEngine, resolve_device
+from repro_torch.core.guard import (
+    BadMatrixError,
+    BreakdownError,
+    GuardReport,
+    perturb_threshold,
+    validate_matrix,
+)
 from repro_torch.core.merge import merge_supernodes
 from repro_torch.core.numeric import (
+    BatchCholeskyFactor,
     CholeskyFactor,
     HostEngine,
     OffloadPolicy,
     PanelStore,
     factorize_levels,
+    factorize_levels_device_many,
     factorize_rl,
     factorize_rlb,
     init_panel_store,
     init_panels,
 )
-from repro_torch.core.refine import refine_partition
+from repro_torch.core.plan_cache import (
+    CachedPlan,
+    PlanCache,
+    build_fill_plan,
+    canonical_csc,
+    pattern_fingerprint,
+)
+from repro_torch.core.refine import refine_partition, refine_solve
 from repro_torch.core.relind import build_scatter_plan, scatter_plan
 from repro_torch.core.schedule import (
     LevelSchedule,
@@ -44,16 +69,20 @@ from repro_torch.core.schedule import (
 from repro_torch.core.symbolic import SymbolicFactor, symbolic_analyze
 
 __all__ = [
-    "counters", "cholesky", "solve", "symbolic_pipeline",
+    "counters", "cholesky", "cholesky_many", "solve", "symbolic_pipeline",
     "bucket_shape", "bucket_shape_batch", "bucket_shape_fused", "syrk_tile",
-    "storage_from_array", "symbolic_from_arrays",
+    "cached_plan_from_arrays", "storage_from_array", "symbolic_from_arrays",
     "DeviceGroupPlan", "DevicePanelStore", "GroupIndices",
     "build_device_plan", "device_plan", "device_solve",
-    "DeviceEngine", "resolve_device", "merge_supernodes",
-    "CholeskyFactor", "HostEngine", "OffloadPolicy", "PanelStore",
-    "factorize_levels", "factorize_rl", "factorize_rlb",
-    "init_panel_store", "init_panels",
-    "refine_partition", "build_scatter_plan", "scatter_plan",
+    "DeviceEngine", "resolve_device",
+    "BadMatrixError", "BreakdownError", "GuardReport", "perturb_threshold",
+    "validate_matrix", "merge_supernodes",
+    "BatchCholeskyFactor", "CholeskyFactor", "HostEngine", "OffloadPolicy",
+    "PanelStore", "factorize_levels", "factorize_levels_device_many",
+    "factorize_rl", "factorize_rlb", "init_panel_store", "init_panels",
+    "CachedPlan", "PlanCache", "build_fill_plan", "canonical_csc",
+    "pattern_fingerprint",
+    "refine_partition", "refine_solve", "build_scatter_plan", "scatter_plan",
     "LevelSchedule", "build_schedule", "cached_schedule", "group_flop_stats",
     "SymbolicFactor", "symbolic_analyze",
 ]

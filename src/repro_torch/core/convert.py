@@ -2,8 +2,10 @@
 
 The reference's ``SymbolicFactor`` and flat panel storage are plain numpy
 fields, so they cross as arrays: ``symbolic_from_arrays`` builds the port's
-``SymbolicFactor`` from them and ``storage_from_array`` takes over a flat
-storage array.  Handing one analysis to both packages lets two runs be
+``SymbolicFactor`` from them, ``storage_from_array`` takes over a flat
+storage array, and ``cached_plan_from_arrays`` builds the port's
+``CachedPlan`` from a reference plan's key, symbolic fields and fill plan
+(its pickled files name the reference's classes and are never loaded).  Handing one analysis to both packages lets two runs be
 compared cell for cell — the solver's counterpart of carrying weights
 across.
 """
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from repro_torch.core.numeric import PanelStore
+from repro_torch.core.plan_cache import CachedPlan
 from repro_torch.core.symbolic import SymbolicFactor
 
 
@@ -43,3 +46,16 @@ def storage_from_array(flat, sym: SymbolicFactor | None = None):
             f"{store.plan.storage_cells}"
         )
     return store
+
+
+def cached_plan_from_arrays(key: str, fill_src, fill_dst, n: int, nnz: int,
+                            **sym_fields) -> CachedPlan:
+    """A port ``CachedPlan`` from a reference plan's arrays: its pattern
+    key, its fill plan (``fill_src``, ``fill_dst``), ``n`` and ``nnz``, and
+    the ``symbolic_from_arrays`` fields of its ``sym`` (``n`` of the
+    symbolic factor is the plan's ``n``)."""
+    sym = symbolic_from_arrays(n=n, **sym_fields)
+    return CachedPlan(key=str(key), sym=sym,
+                      fill_src=np.array(fill_src, dtype=np.int64),
+                      fill_dst=np.array(fill_dst, dtype=np.int64),
+                      n=int(n), nnz=int(nnz))

@@ -21,6 +21,7 @@ BUILD_KINDS = (
     "scatter_plan",       # repro_torch.core.relind.build_scatter_plan
     "schedule",           # repro_torch.core.schedule.build_schedule
     "device_plan",        # repro_torch.core.device_store.build_device_plan
+    "fill_plan",          # repro_torch.core.plan_cache.build_fill_plan
 )
 
 

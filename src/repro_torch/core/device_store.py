@@ -297,14 +297,35 @@ class DevicePanelStore:
     factor of the sequential or mixed paths, or one carried across from
     another package): only the solve's index arrays and the packed factor
     go up, in two transfers, and nothing is factored.
+
+    ``nmat`` > 1 is the multi-matrix layout: ``host_storage`` is (nmat,
+    cells), nmat value streams over ONE pattern; every value buffer
+    (chunks, pool, packed factor) carries a leading matrix axis, the index
+    plan is shared, and each group factors all matrices in one
+    ``fused_group_many`` dispatch.
+
+    ``guard`` runs every group through the guarded kernel (clamping at
+    ``guard_thr`` when ``guard_clamp``); the per-group status blocks are
+    concatenated onto the ONE factor read-back, so detection costs no
+    transfer, and ``guard_status`` returns them.
     """
 
     def __init__(self, eng, sym: SymbolicFactor, sched: LevelSchedule,
                  host_storage: np.ndarray, *, factored: bool = False,
-                 staging: str | None = None):
+                 staging: str | None = None, nmat: int = 1,
+                 guard: bool = False, guard_thr: float = 0.0,
+                 guard_clamp: bool = False):
         self.eng, self.sym, self.sched = eng, sym, sched
         gp = device_plan(sym, sched)
         self.plan = gp
+        self.nmat = int(nmat)
+        self.guard = bool(guard)
+        self.guard_thr = float(guard_thr)
+        self.guard_clamp = bool(guard_clamp)
+        self._status: list = []
+        self._status_host = None
+        if self.guard and factored:
+            raise ValueError("guard applies only to a store that factors")
         if factored and staging is not None:
             raise ValueError("staging applies only to a store that factors")
         staging = "sync" if factored else (
@@ -342,24 +363,26 @@ class DevicePanelStore:
         self.factor_ext = None
         self._packed: list = []
         self._solve_ready = False
-        self.trash = None
+        # resident solve-layout indices, uploaded at the first solve
+        self.trash = self._iperm = self._operm = None
         self._host_storage = None
         self._chunks: list = []
+        lead = (self.nmat,) if self.nmat > 1 else ()
         if factored:
             # the factored panels, packed, plus the shared zero and one cells
-            packed = np.empty(gp.packed_total + 2)
-            packed[:-2] = host_storage[gp.cells_concat]
-            packed[-2:] = (0.0, 1.0)
+            packed = np.empty(lead + (gp.packed_total + 2,))
+            packed[..., :-2] = host_storage[..., gp.cells_concat]
+            packed[..., -2:] = (0.0, 1.0)
             self.factor_ext = eng.put(packed)
             self.pool = None
             return
-        self.pool = torch.zeros(gp.pool_size, dtype=torch.float64,
+        self.pool = torch.zeros(lead + (gp.pool_size,), dtype=torch.float64,
                                 device=eng.device)
         lb = gp.level_base
         nlev = len(gp.groups)
         if staging == "sync":
-            whole = eng.put(host_storage[gp.cells_concat])
-            self._chunks = [whole[lb[l]:lb[l + 1]] for l in range(nlev)]
+            whole = eng.put(host_storage[..., gp.cells_concat])
+            self._chunks = [whole[..., lb[l]:lb[l + 1]] for l in range(nlev)]
         else:
             # the level's host-side gather runs at prefetch time, while
             # earlier levels' dispatches are in flight
@@ -375,7 +398,8 @@ class DevicePanelStore:
             return
         gp = self.plan
         cells = gp.cells_concat[gp.level_base[lvl]:gp.level_base[lvl + 1]]
-        self._chunks[lvl] = self.eng.put_async(self._host_storage[cells])
+        self._chunks[lvl] = self.eng.put_async(
+            self._host_storage[..., cells])
         self.eng._event("upload", lvl)
 
     def _chunk(self, lvl: int) -> torch.Tensor:
@@ -388,8 +412,15 @@ class DevicePanelStore:
     def assemble_group(self, lvl: int, gi: int) -> None:
         """Factor one (level, bucket) group on the device: ONE dispatch."""
         g = self.groups[lvl][gi]
-        self._packed.append(
-            self.eng.fused_group(self._chunk(lvl), self.pool, g, lvl))
+        run = (self.eng.fused_group_many if self.nmat > 1
+               else self.eng.fused_group)
+        if self.guard:
+            packed, st = run(self._chunk(lvl), self.pool, g, lvl, guard=True,
+                             thr=self.guard_thr, clamp=self.guard_clamp)
+            self._status.append(st)
+        else:
+            packed = run(self._chunk(lvl), self.pool, g, lvl)
+        self._packed.append(packed)
 
     def finalize(self) -> None:
         """Concatenate the per-group packed factors (plus the shared zero and
@@ -398,7 +429,9 @@ class DevicePanelStore:
             return
         dev = self.eng.device
         tail = torch.tensor([0.0, 1.0], dtype=torch.float64, device=dev)
-        self.factor_ext = torch.cat(self._packed + [tail])
+        if self.nmat > 1:
+            tail = tail.expand(self.nmat, 2)
+        self.factor_ext = torch.cat(self._packed + [tail], dim=-1)
         self._packed = []
         self.pool = None
         self._chunks = []
@@ -406,12 +439,29 @@ class DevicePanelStore:
 
     def ensure_solve_ready(self) -> None:
         """First device solve only: build P/Dinv for every group and upload
-        the trash row index."""
+        the solve-layout indices in ONE transfer: the trash row of each
+        matrix and the two permutations that stage and unstage a resident
+        right-hand side (the reference's layout)."""
         if self._solve_ready:
             return
         self.finalize()
         self._materialize_panels()
-        self.trash = self.eng.put(np.array([self.sym.n], dtype=np.int64))
+        n, M = self.sym.n, self.nmat
+        perm = self.sym.perm
+        iperm_nat = np.empty(n, dtype=np.int64)
+        iperm_nat[perm] = np.arange(n)
+        stride = np.arange(M, dtype=np.int64) * (n + 1)
+        # padded row (mi, i) sources natural row (mi, perm[i]); trash rows
+        # source row 0 and are zeroed right after the staging gather
+        iperm = (np.concatenate([perm, [0]])[None, :]
+                 + (np.arange(M, dtype=np.int64) * n)[:, None]).ravel()
+        iperm[(n + 1) * np.arange(M) + n] = 0
+        operm = (iperm_nat[None, :] + stride[:, None]).ravel()
+        trash = stride + n
+        aux = self.eng.put(np.concatenate([trash, iperm, operm]))
+        self.trash = aux[:M]
+        self._iperm = aux[M:M + M * (n + 1)]
+        self._operm = aux[M + M * (n + 1):]
         self._solve_ready = True
 
     def _materialize_panels(self) -> None:
@@ -420,20 +470,61 @@ class DevicePanelStore:
         the zero/one cells map to the shared pair at its end) and its
         inverted diagonal blocks Dinv, one batched inversion per group."""
         total = self.plan.packed_total
+        n, M = self.sym.n, self.nmat
         for lvl, lgroups in enumerate(self.plan.groups):
             for gi, g in enumerate(lgroups):
                 dg = self.groups[lvl][gi]
                 r = g.cells.shape[0]
                 sgidx = torch.where(dg.gidx < r, dg.gidx + g.base,
                                     dg.gidx - r + total)
-                dg.P = self.factor_ext[sgidx]
+                if M > 1:
+                    # the M factors stack into one (M*Bp, ...) batch; each
+                    # matrix's RHS rows are their own (n+1) block, so lane
+                    # targets shift by mi*(n+1) (pads land on its own trash)
+                    Bp = dg.gidx.shape[0]
+                    dg.P = self.factor_ext[:, sgidx].reshape(M * Bp, g.Lp,
+                                                             g.Wp)
+                    shift = (torch.arange(M, device=dg.cols.device)
+                             * (n + 1))[:, None, None]
+                    dg.cols = (dg.cols[None] + shift).reshape(M * Bp, -1)
+                    dg.tails = (dg.tails[None] + shift).reshape(M * Bp, -1)
+                else:
+                    dg.P = self.factor_ext[sgidx]
                 dg.Dinv = self.eng.invert_diag(dg.P)
 
     def read_into(self, host_storage: np.ndarray) -> None:
-        """One bulk device->host transfer of the factored packed panels."""
+        """One bulk device->host transfer of the factored packed panels.  A
+        guarded factorization concatenates the per-group status blocks onto
+        the same transfer, so detection costs no extra transfer."""
         self.finalize()
-        packed = self.eng.get(self.factor_ext)
-        host_storage[self.plan.cells_concat] = packed[:-2]
+        nf = self.factor_ext.shape[-1]
+        if self._status:
+            lead = (self.nmat,) if self.nmat > 1 else ()
+            flat = [st.reshape(lead + (-1,)) for st in self._status]
+            blob = self.eng.get(torch.cat([self.factor_ext] + flat, dim=-1))
+            packed, self._status_host = blob[..., :nf], blob[..., nf:]
+            self._status = []
+        else:
+            packed = self.eng.get(self.factor_ext)
+        host_storage[..., self.plan.cells_concat] = packed[..., :-2]
+
+    def guard_status(self):
+        """Per-group host status blocks in (level, group) dispatch order:
+        (Bp, 4) each, or (nmat, Bp, 4) in the multi-matrix layout (columns
+        as ``kernels.fused.STATUS_COLS``).  Available after ``read_into``;
+        None when the store was not guarded."""
+        if self._status_host is None:
+            return None
+        out = []
+        pos = 0
+        for row in self.groups:
+            for dg in row:
+                Bp = dg.gidx.shape[0]
+                k = Bp * 4
+                blk = self._status_host[..., pos:pos + k]
+                out.append(blk.reshape(blk.shape[:-1] + (Bp, 4)))
+                pos += k
+        return out
 
 
 def _solve_levels(dstore: DevicePanelStore, dy: torch.Tensor) -> torch.Tensor:
@@ -452,26 +543,51 @@ def _solve_levels(dstore: DevicePanelStore, dy: torch.Tensor) -> torch.Tensor:
     return dy
 
 
-def device_solve(dstore: DevicePanelStore, b) -> np.ndarray:
-    """Solve A x = b for a host RHS ``b`` of shape (n,) or (n, k) with the
-    device-resident factor: one upload, level-scheduled batched forward and
-    backward substitution, one download.  Profiler ranges:
-    ``solve.prepare`` (first solve only: the diagonal-block inversions) and
-    ``solve.levels``."""
+def device_solve(dstore: DevicePanelStore, b):
+    """Solve A x = b with the device-resident factor: level-scheduled batched
+    forward and backward substitution.  Profiler ranges: ``solve.prepare``
+    (first solve only: the diagonal-block inversions) and ``solve.levels``.
+
+    A host ``b`` (numpy) costs one upload and one download.  A resident
+    ``b`` (a torch tensor on the store's device) costs no transfer: it is
+    permuted into the padded solve layout on the device (``stage_rhs``)
+    and the solution comes back as a tensor on that device, so callers
+    chain solves without touching the host.  ``b`` is (n,) or (n, k); with
+    ``nmat`` > 1, (nmat, n) or (nmat, n, k), all matrices in the same
+    dispatches."""
     with record_function("solve.prepare"):
         dstore.ensure_solve_ready()
-    sym, eng = dstore.sym, dstore.eng
+    sym, eng, M = dstore.sym, dstore.eng, dstore.nmat
     n = sym.n
+    lead = (M,) if M > 1 else ()
+    if isinstance(b, torch.Tensor):
+        if b.device.type != eng.device.type:
+            raise ValueError(f"a resident b must be on {eng.device}, got "
+                             f"{b.device}")
+        squeeze = b.dim() == len(lead) + 1
+        y = b[..., None] if squeeze else b
+        if y.dim() != len(lead) + 2 or tuple(y.shape[:-1]) != lead + (n,):
+            raise ValueError(f"b must be {lead + (n,)} or {lead + (n, 'k')}, "
+                             f"got {tuple(b.shape)}")
+        flat = y.to(torch.float64).reshape(M * n, y.shape[-1])
+        with record_function("solve.levels"):
+            dy = eng.stage_rhs(flat, dstore._iperm, dstore.trash)
+            x = eng.unstage_rhs(_solve_levels(dstore, dy), dstore._operm)
+        x = x.reshape(y.shape)
+        return x[..., 0] if squeeze else x
     y = np.asarray(b, dtype=np.float64)
-    squeeze = y.ndim == 1
+    squeeze = y.ndim == len(lead) + 1
     if squeeze:
-        y = y[:, None]
-    if y.ndim != 2 or y.shape[0] != n:
-        raise ValueError(f"b must be (n,) or (n, k) with n = {n}, got {np.shape(b)}")
-    yp = np.zeros((n + 1, y.shape[1]))
-    yp[:n] = y[sym.perm]
+        y = y[..., None]
+    if y.ndim != len(lead) + 2 or y.shape[:-1] != lead + (n,):
+        raise ValueError(f"b must be {lead + (n,)} or {lead + (n, 'k')} with "
+                         f"n = {n}, got {np.shape(b)}")
+    k = y.shape[-1]
+    yp = np.zeros(lead + (n + 1, k))
+    yp[..., :n, :] = y[..., sym.perm, :]
     with record_function("solve.levels"):
-        z = eng.get(_solve_levels(dstore, eng.put(yp)))[:n]
+        z = eng.get(_solve_levels(dstore, eng.put(yp.reshape(-1, k))))
+    z = z.reshape(lead + (n + 1, k))[..., :n, :]
     x = np.empty_like(z)
-    x[sym.perm] = z
-    return x[:, 0] if squeeze else x
+    x[..., sym.perm, :] = z
+    return x[..., 0] if squeeze else x

@@ -12,8 +12,12 @@ chain.  Three protocols:
                                 / ``release_batch``: one (level x bucket)
                                 batch per call, host assembly
     device-resident (levels)    ``put`` / ``put_async`` / ``get``,
-                                ``fused_group``, ``invert_diag``,
-                                ``solve_fwd_level`` / ``solve_bwd_level``
+                                ``fused_group`` (guarded or not),
+                                ``fused_group_many`` (M matrices of one
+                                pattern), ``invert_diag``,
+                                ``solve_fwd_level`` / ``solve_bwd_level``,
+                                ``stage_rhs`` / ``unstage_rhs`` (a resident
+                                right-hand side)
 
 A staged supernode is its exact (rows, w) panel: where the reference pads
 into a bucket for ``jit``, the port's kernels mask their ragged edges, so
@@ -302,11 +306,16 @@ class DeviceEngine:
 
     # -- device-resident factor ---------------------------------------------
     def fused_group(self, chunk: torch.Tensor, pool: torch.Tensor, g,
-                    lvl: int = -1) -> torch.Tensor:
+                    lvl: int = -1, *, guard: bool = False, thr: float = 0.0,
+                    clamp: bool = False):
         """Run one (level x bucket) group end to end as ONE dispatch: slice
         the level chunk, apply the pending updates by the prefix-sum trick,
         factor with the fused kernel, write the group's update entries into
-        ``pool`` in place, and return the group's packed factored cells."""
+        ``pool`` in place, and return the group's packed factored cells.
+
+        ``guard`` runs the guarded kernel instead and returns ``(packed,
+        st)`` with ``st`` the (Bp, 4) per-lane status; ``clamp`` clamps
+        pivots at ``thr`` (without it the kernel only detects, thr = 0)."""
         self.stats["device_calls"] += 1
         self._event("dispatch", lvl)
         n_out = int(g.upack.shape[0])
@@ -316,10 +325,64 @@ class DeviceEngine:
             C = torch.cat([vals.new_zeros(1), torch.cumsum(vals, 0)])
             pc = pc - (C[g.hi] - C[g.lo])
         ext = torch.cat([pc, pc.new_zeros(1), pc.new_ones(1)])
-        fp, u = fused_factor_syrk(ext[g.gidx], g.rows, g.ws)  # (Bp, Lp, Wp)
+        buf = ext[g.gidx]  # (Bp, Lp, Wp)
+        if guard:
+            fp, u, st = fused_factor_syrk(buf, g.rows, g.ws, guard=True,
+                                          thr=thr if clamp else 0.0)
+        else:
+            fp, u = fused_factor_syrk(buf, g.rows, g.ws)
         if n_out:
             pool[g.off:g.off + n_out] = u.reshape(-1)[g.upack]
-        return fp.reshape(-1)[g.ppack]
+        packed = fp.reshape(-1)[g.ppack]
+        return (packed, st) if guard else packed
+
+    def fused_group_many(self, chunk: torch.Tensor, pool: torch.Tensor, g,
+                         lvl: int = -1, *, guard: bool = False,
+                         thr: float = 0.0, clamp: bool = False):
+        """Multi-matrix ``fused_group``: M value streams (a leading matrix
+        axis on ``chunk`` (M, clen) and ``pool`` (M, pool)) through one
+        pattern's index arrays, factored as ONE kernel call of M*Bp lanes.
+        Returns the (M, r) packed cells, with ``guard`` also the (M, Bp, 4)
+        status."""
+        self.stats["device_calls"] += 1
+        self._event("dispatch", lvl)
+        M = chunk.shape[0]
+        Bp, Lp, Wp = g.gidx.shape
+        n_out = int(g.upack.shape[0])
+        pc = chunk[:, g.lb:g.lb + int(g.ppack.shape[0])]
+        if g.src.shape[0]:
+            vals = pool[:, g.src]  # (M, n_in), destination-sorted
+            C = torch.cat([vals.new_zeros((M, 1)), torch.cumsum(vals, 1)], 1)
+            pc = pc - (C[:, g.hi] - C[:, g.lo])
+        ext = torch.cat([pc, pc.new_zeros((M, 1)), pc.new_ones((M, 1))], 1)
+        buf = ext[:, g.gidx].reshape(M * Bp, Lp, Wp)
+        rows, ws = g.rows.repeat(M), g.ws.repeat(M)
+        if guard:
+            fp, u, st = fused_factor_syrk(buf, rows, ws, guard=True,
+                                          thr=thr if clamp else 0.0)
+        else:
+            fp, u = fused_factor_syrk(buf, rows, ws)
+        if n_out:
+            pool[:, g.off:g.off + n_out] = u.reshape(M, -1)[:, g.upack]
+        packed = fp.reshape(M, -1)[:, g.ppack]
+        return (packed, st.reshape(M, Bp, -1)) if guard else packed
+
+    # -- resident right-hand sides ------------------------------------------
+    def stage_rhs(self, b: torch.Tensor, iperm: torch.Tensor,
+                  trash: torch.Tensor) -> torch.Tensor:
+        """Permute a device-resident (M*n, k) right-hand side into the padded
+        solve layout, one trash row per matrix (zero transfers; counted as a
+        device call)."""
+        self.stats["device_calls"] += 1
+        y = b[iperm]
+        y[trash] = 0.0
+        return y
+
+    def unstage_rhs(self, y: torch.Tensor, operm: torch.Tensor) -> torch.Tensor:
+        """The padded solve layout back in natural row order, trash rows
+        dropped (zero transfers; counted as a device call)."""
+        self.stats["device_calls"] += 1
+        return y[operm]
 
     # -- solve -------------------------------------------------------------
     def invert_diag(self, P: torch.Tensor) -> torch.Tensor:

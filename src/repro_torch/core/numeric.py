@@ -137,9 +137,27 @@ class CholeskyFactor:
     # the DeviceEngine that made this factor (None for a host-only one): a
     # device solve without a resident factor stages the host factor with it
     engine: object | None = None
+    # breakdown-guard extras (guarded factorizations only): the reduced
+    # GuardReport, and the original matrix solves refine against when the
+    # factor carries recorded perturbations or a shift
+    guard_report: object | None = None
+    guard_A: object | None = None
+
+    def L_dense(self) -> np.ndarray:
+        """The full dense L (for small-n validation only)."""
+        n = self.sym.n
+        L = np.zeros((n, n))
+        for s in range(self.sym.nsuper):
+            f = int(self.sym.super_ptr[s])
+            w = self.sym.width(s)
+            r = self.sym.rows[s]
+            P = self.panels[s]
+            for c in range(w):
+                L[r[c:], f + c] = P[c:, c]
+        return L
 
     def solve(self, b: np.ndarray, *, backend: str = "host",
-              engine=None) -> np.ndarray:
+              engine=None, refine: bool | None = None) -> np.ndarray:
         """Solve A x = b using P A P^T = L L^T.
 
         backend  'host' (per-supernode scipy loop, the paper's solve) or
@@ -151,7 +169,28 @@ class CholeskyFactor:
         engine   device backend only: the DeviceEngine to stage with when no
                  device-resident factor exists (default: the factor's own
                  engine, else a new one on the card).
+        refine   refine against the original matrix (guarded factorizations
+                 only; ``refine.refine_solve``).  The default ``None`` does
+                 so when the factor carries recorded perturbations or a
+                 diagonal shift, so a perturbed factor still solves the
+                 original system to full precision.
         """
+        if refine is None:
+            refine = (self.guard_report is not None
+                      and self.guard_report.needs_refine
+                      and self.guard_A is not None)
+        if refine:
+            if self.guard_A is None:
+                raise ValueError(
+                    "refined solve needs the original matrix; this factor "
+                    "carries no guard_A (factor with guard= to record it)"
+                )
+            from repro_torch.core.refine import refine_solve
+            x, hist = refine_solve(self, self.guard_A, b,
+                                   backend=backend, engine=engine)
+            if self.guard_report is not None:
+                self.guard_report.ir_history.append(hist)
+            return x
         if backend == "device":
             return self.solve_device(b, engine=engine)
         if backend != "host":
@@ -356,8 +395,11 @@ def factorize_levels(
               'device' — force the device-resident path (requires a device
                          engine; the offload policy is ignored)
     staging   device-resident path only: 'async' (default) or 'sync'
-    guard     the breakdown guard is not ported yet (ROADMAP queue 1,
-              item 6): anything but None raises NotImplementedError
+    guard     device-resident path only: 'raise' or 'perturb' runs every
+              group through the guarded kernel (``guard_thr`` its clamp
+              threshold, applied when ``guard_clamp``) and attaches the
+              reduced ``GuardReport``; the host and mixed paths raise
+              ValueError, as the reference's do
     """
     if assembly not in ("auto", "host", "device"):
         raise ValueError(
@@ -365,16 +407,20 @@ def factorize_levels(
         )
     if assembly == "device" and device_engine is None:
         raise ValueError("assembly='device' requires a device engine")
-    if guard is not None:
-        raise NotImplementedError(
-            "guarded factorization is not ported yet (ROADMAP queue 1, item 6)"
-        )
     if device_engine is not None and assembly != "host" and (
         assembly == "device"
         or (policy is not None and policy.threshold == 0)
     ):
         return _factorize_levels_device(
             sym, Aperm, device_engine, max_batch=max_batch, staging=staging,
+            guard=guard, guard_thr=guard_thr, guard_clamp=guard_clamp,
+        )
+    if guard is not None:
+        raise ValueError(
+            "guarded factorization requires the fully-offloaded "
+            "device-resident path (device engine + full offload, or "
+            "assembly='device'); the host/mixed paths detect breakdown "
+            "through numpy's LinAlgError instead"
         )
     if staging is not None:
         raise ValueError(
@@ -441,11 +487,18 @@ def _factorize_levels_device(
     max_batch: int = 256,
     staging: str | None = None,
     store: PanelStore | None = None,
+    guard: str | None = None,
+    guard_thr: float = 0.0,
+    guard_clamp: bool = False,
 ) -> CholeskyFactor:
     """Fully device-resident level-scheduled factorization: each (level x
     bucket) group is ONE fused dispatch, and with ``staging='async'`` (the
     default) level k+1's packed storage chunk is uploaded before level k is
     dispatched, so transfers overlap compute.
+
+    ``store`` hands in a pre-filled PanelStore (the plan cache's vectorized
+    fill), so ``Aperm`` may be None.  ``guard`` ('raise' or 'perturb') runs
+    the guarded kernel and reduces its status into ``guard_report``.
 
     The bucket family is the coarse power-of-two ``"fused"`` one: the fused
     kernel masks pad lanes, identity slabs and beyond-tail SYRK tiles, and
@@ -466,7 +519,9 @@ def _factorize_levels_device(
     sched = cached_schedule(sym, max_batch=max_batch, bucket=bucket)
     with record_function("factor.stage"):
         dstore = DevicePanelStore(device_engine, sym, sched, store.storage,
-                                  staging=staging)
+                                  staging=staging, guard=guard is not None,
+                                  guard_thr=guard_thr,
+                                  guard_clamp=guard_clamp)
     stats = {
         "method": "levels",
         "assembly": "device",
@@ -496,9 +551,181 @@ def _factorize_levels_device(
     with record_function("factor.read_back"):
         dstore.read_into(store.storage)  # ONE bulk factor read-back
         device_engine.flush()
+    report = None
+    if guard is not None:
+        report = _reduce_guard(sym, sched, dstore.guard_status(),
+                               mode=guard, thr=guard_thr)
+        stats["guard"] = guard
     return CholeskyFactor(
         sym=sym, panels=store.panels, stats=stats, store=store, dstore=dstore,
-        engine=device_engine,
+        engine=device_engine, guard_report=report,
+    )
+
+
+def _reduce_guard(sym, sched, status_groups, *, mode: str, thr: float):
+    """Reduce the per-lane kernel status rows of one factorization into a
+    GuardReport (the reference's ``numeric._reduce_guard``): zip each
+    group's (Bp, 4) status block — (min d^2, n_clamped, nonfinite, clamp
+    magnitude) per lane, pad lanes (inf, 0, 0, 0) — with the schedule's
+    supernode ids, in (level, group, lane) = elimination order, so
+    ``first_broken`` names the first supernode that actually broke."""
+    from repro_torch.core.guard import GuardReport
+
+    rep = GuardReport(guard=mode, n_supernodes=int(sym.nsuper),
+                      perturb_thr=float(thr))
+    it = iter(status_groups)
+    mins: list = []
+    for lvl, lgroups in enumerate(sched.groups):
+        lvl_min = None
+        for bg in lgroups:
+            st = np.asarray(next(it), dtype=np.float64)
+            ids = np.asarray(bg.ids)
+            for j in range(int(ids.shape[0])):
+                mind2, ncl, nf, mag = st[j]
+                snode = int(ids[j])
+                mins.append(mind2)
+                if np.isfinite(mind2):
+                    lvl_min = mind2 if lvl_min is None else min(lvl_min, mind2)
+                clamped = ncl > 0
+                if clamped:
+                    rep.perturbations.append({
+                        "supernode": snode, "level": lvl,
+                        "min_pivot": float(mind2), "n_clamped": int(ncl),
+                        "magnitude": float(mag),
+                    })
+                # broken = nonfinite panel, or a nonpositive/NaN pivot that no
+                # clamp rescued (NaN fails the ``> 0`` comparison on purpose)
+                if (nf > 0) or (not clamped and not (mind2 > 0)):
+                    rep.broken.append({
+                        "supernode": snode, "level": lvl,
+                        "min_pivot": float(mind2),
+                        "nonfinite": bool(nf > 0),
+                    })
+                    if rep.first_broken is None:
+                        rep.first_broken = snode
+                        rep.first_broken_level = lvl
+        rep.level_min_pivots.append(
+            (lvl, None if lvl_min is None else float(lvl_min))
+        )
+    arr = np.asarray(mins, dtype=np.float64)
+    fin = arr[np.isfinite(arr)]
+    if fin.size:
+        rep.min_pivot = float(np.min(fin))
+    elif arr.size and np.any(np.isnan(arr)):
+        rep.min_pivot = float("nan")
+    return rep
+
+
+# ---------------------------------------------------------------------------
+# multi-matrix batched factorization (one pattern, M value streams)
+# ---------------------------------------------------------------------------
+@dataclass
+class BatchCholeskyFactor:
+    """M factors of matrices sharing ONE sparsity pattern, made by one set
+    of fused multi-matrix dispatches (see ``api.cholesky_many``).
+
+    ``storage`` is the (M, cells) flat factor block; ``factor(i)`` wraps row
+    i in panel views (a zero-copy CholeskyFactor, usable anywhere a
+    single-matrix factor is).  ``solve`` runs all M right-hand sides
+    through the same level-scheduled device dispatches against the
+    still-resident factor."""
+    sym: SymbolicFactor
+    nmat: int
+    storage: np.ndarray       # (M, storage_cells)
+    stats: dict | None = None
+    dstore: object | None = None
+    guard_reports: list | None = None  # per-matrix GuardReport (guarded)
+    guard_As: list | None = None       # per-matrix original A (perturb)
+    _factors: list | None = None
+
+    def factor(self, i: int) -> CholeskyFactor:
+        """Zero-copy single-matrix view of factor ``i``."""
+        if self._factors is None:
+            self._factors = [None] * self.nmat
+        f = self._factors[i]
+        if f is None:
+            store = PanelStore(self.sym, storage=self.storage[i])
+            f = self._factors[i] = CholeskyFactor(
+                sym=self.sym, panels=store.panels, stats=self.stats,
+                store=store,
+                engine=None if self.dstore is None else self.dstore.eng,
+                guard_report=(self.guard_reports[i]
+                              if self.guard_reports else None),
+                guard_A=self.guard_As[i] if self.guard_As else None,
+            )
+        return f
+
+    def solve(self, b):
+        """Solve A_i x_i = b_i for all M systems at once: ``b`` is (M, n) or
+        (M, n, nrhs), every substitution level ONE dispatch covering all
+        matrices.  A resident ``b`` (a tensor on the engine's device) stays
+        resident: zero transfers, a resident result."""
+        from repro_torch.core.device_store import device_solve
+
+        return device_solve(self.dstore, b)
+
+
+def factorize_levels_device_many(
+    sym: SymbolicFactor,
+    storage: np.ndarray,
+    device_engine,
+    *,
+    max_batch: int = 256,
+    staging: str | None = None,
+    guard: str | None = None,
+    guard_thr: float = 0.0,
+    guard_clamp: bool = False,
+) -> BatchCholeskyFactor:
+    """Factor M matrices sharing one pattern with ONE set of level-scheduled
+    dispatches: ``storage`` is the (M, cells) pre-filled flat storage block
+    (``CachedPlan.fill_storage`` per row), and every (level x bucket) group
+    runs as a single ``fused_group_many`` dispatch whose kernel call stacks
+    all M matrices' lanes.  Per-group dispatch overhead is paid once per
+    group instead of once per (matrix, group).  Profiler ranges as
+    ``_factorize_levels_device``: ``factor.stage``, ``factor.levels``,
+    ``factor.read_back``."""
+    from repro_torch.core.device_store import DevicePanelStore
+
+    device_engine.reset_events()
+    M = int(storage.shape[0])
+    bucket = "fused"
+    sched = cached_schedule(sym, max_batch=max_batch, bucket=bucket)
+    with record_function("factor.stage"):
+        dstore = DevicePanelStore(device_engine, sym, sched, storage,
+                                  staging=staging, nmat=M,
+                                  guard=guard is not None,
+                                  guard_thr=guard_thr,
+                                  guard_clamp=guard_clamp)
+    stats = {
+        "method": "levels_many",
+        "assembly": "device",
+        "staging": dstore.staging,
+        "bucket": bucket,
+        "nmat": M,
+        "supernodes_on_device": sym.nsuper,
+        "supernodes_total": sym.nsuper,
+        "schedule": sched.batch_stats(),
+    }
+    with record_function("factor.levels"):
+        for lvl, lgroups in enumerate(sched.groups):
+            dstore.prefetch_level(lvl + 1)
+            for gi in range(len(lgroups)):
+                dstore.assemble_group(lvl, gi)
+    with record_function("factor.read_back"):
+        dstore.read_into(storage)  # ONE bulk read-back of all M factors
+        device_engine.flush()
+    reports = None
+    if guard is not None:
+        stat = dstore.guard_status()
+        reports = [
+            _reduce_guard(sym, sched, [st[m] for st in stat],
+                          mode=guard, thr=guard_thr)
+            for m in range(M)
+        ]
+        stats["guard"] = guard
+    return BatchCholeskyFactor(
+        sym=sym, nmat=M, storage=storage, stats=stats, dstore=dstore,
+        guard_reports=reports,
     )
 
 

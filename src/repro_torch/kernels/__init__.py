@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch
 version beside it in the same module:
 
-    fused  — batched POTRF + TRSM + SYRK over a (level x bucket) group
+    fused  — batched POTRF + TRSM + SYRK over a (level x bucket) group,
+             unguarded and guarded (the pivot clamp and status row)
              (replaces src/repro/kernels/fused.py::fused_factor_syrk)
     trsm   — batched lower-triangular inverse of diagonal blocks, and the
              general right-side solve X L^T = B
@@ -16,7 +17,13 @@ blocked ``potrf`` routine is ``ops.potrf``).  A wrapper
 runs the plain version for a CPU tensor and launches its kernel, or raises,
 for a CUDA tensor.  ``_build`` compiles ``csrc/*.cu`` at first use.
 """
-from repro_torch.kernels.fused import fused_factor_syrk, fused_factor_syrk_ref
+from repro_torch.kernels.fused import (
+    fused_factor_syrk,
+    fused_factor_syrk_guarded,
+    fused_factor_syrk_guarded_ref,
+    fused_factor_syrk_ref,
+    live_cells,
+)
 from repro_torch.kernels.gemm import gemm_nt, gemm_nt_ref
 from repro_torch.kernels.potrf import chol_tile, chol_tile_ref, potrf_ref
 from repro_torch.kernels.syrk import syrk_ln, syrk_ln_ref
@@ -29,9 +36,12 @@ from repro_torch.kernels.trsm import (
 
 #: every kernel wrapper of the port (each has a ``launches`` counter)
 KERNELS = (fused_factor_syrk, tri_inv_lower, trsm_rlt, chol_tile, syrk_ln,
-           gemm_nt)
+           gemm_nt, fused_factor_syrk_guarded)
 
-__all__ = ["fused_factor_syrk", "fused_factor_syrk_ref", "tri_inv_lower",
+__all__ = ["fused_factor_syrk", "fused_factor_syrk_ref",
+           "fused_factor_syrk_guarded", "fused_factor_syrk_guarded_ref",
+           "live_cells",
+           "tri_inv_lower",
            "tri_inv_lower_ref", "trsm_rlt", "trsm_rlt_ref", "chol_tile",
            "chol_tile_ref", "potrf_ref", "syrk_ln", "syrk_ln_ref",
            "gemm_nt", "gemm_nt_ref", "KERNELS"]

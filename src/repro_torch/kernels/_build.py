@@ -25,12 +25,14 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: exported C functions of each library: name -> (argtypes, restype)
 SIGNATURES = {
     "fused_factor_syrk": {
         "fused_factor_syrk_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
                                      _I),
+        "fused_factor_syrk_guarded_launch": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _I, _P], _I),
         "fused_factor_syrk_error": ([_I], ctypes.c_char_p),
     },
     "tri_inv": {

@@ -31,6 +31,27 @@
 // TPU; tiles with no live rows or lying wholly above the diagonal exit too.
 // All launches go on the caller's stream; the kernel allocates nothing.
 //
+// Guarded variant (fused_factor_syrk_guarded_launch; replaces the same TPU
+// kernel with guard=True, fused.py:84-198, :293-297, :332-343).  Per real
+// column k the clamp rule needs theta, the largest below-diagonal |entry|
+// of column k at its elimination over the lane's whole live height (rows
+// (k, w) and the tail [Wp, Wp + m)), so the diagonal block can no longer be
+// factored before the rows below it are up to date.  Instead one block per
+// lane (guarded_slab_kernel, GNT threads) sweeps each 64-column slab over
+// the full live height, column by column: reduce d^2 and theta, apply the
+// clamp d2c = max(thr, |d2|, theta^2 GFLOOR_MULT / thr) (thr = 0: detect
+// only), scale the column, then the rank-1 update of the slab's remaining
+// real columns.  It replaces diag_factor_kernel + panel_trsm_kernel for the
+// slab; trailing_kernel and syrk_kernel are unchanged, so a guarded slab
+// costs 2 launches instead of 3.  The status (min unclamped d^2, n clamped,
+// nonfinite flag, clamp magnitude) lives in st (Bp, 4), initialised to
+// (inf, 0, 0, 0) next to the mask pass and carried from slab to slab; the
+// nonfinite flag is raised as each column's live cells are finalised.  NaN
+// follows jnp: max propagates it (fmax would drop it), ~(d2 >= thr) holds
+// for a NaN pivot, a nonfinite d2c falls back to thr.  One SM sweeps a
+// whole lane, reading the slab through L2, so a wide lane is latency bound;
+// a cooperative version that spreads a lane over many SMs is later work.
+//
 // Bound on this card: the work is O(w^3/3 + m w^2 + m^2 w) flops per lane
 // against O(Lp Wp + (Lp-Wp)^2) bytes, far above the H100's ~20 flops/byte
 // fp64 tensor-core balance for the large lanes, so the bound is flops at
@@ -41,6 +62,7 @@
 // below that.  Left for later: DMMA (mma.sync f64) tiles, TMA staging, and a
 // persistent kernel that removes the 3 launches per 64-column slab.
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 namespace {
 
@@ -236,6 +258,115 @@ __global__ void syrk_kernel(const double* __restrict__ fp,
     }
 }
 
+
+// ---------------------------------------------------------------------------
+// guarded variant
+// ---------------------------------------------------------------------------
+constexpr int GNT = 512;  // threads of the guarded sweep (one block a lane)
+
+// NaN-propagating max, as jnp.max / jnp.maximum (fmax drops NaN)
+__device__ __forceinline__ double nan_max(double a, double b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+
+__global__ void status_init_kernel(double* __restrict__ st, int Bp) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < Bp) {
+    st[4 * b + 0] = CUDART_INF;
+    st[4 * b + 1] = 0.0;
+    st[4 * b + 2] = 0.0;
+    st[4 * b + 3] = 0.0;
+  }
+}
+
+// Row of the i-th live row strictly below column k: [k+1, w), then the
+// tail [Wp, Wp + m).
+__device__ __forceinline__ int live_row(int i, int nd, int k, int Wp) {
+  return i < nd ? k + 1 + i : Wp + (i - nd);
+}
+
+__global__ void guarded_slab_kernel(double* __restrict__ fp,
+                                    const int* __restrict__ rows,
+                                    const int* __restrict__ ws,
+                                    double* __restrict__ st, int Lp, int Wp,
+                                    int k0, int nbk, double thr, double gf) {
+  const int b = blockIdx.x, tid = threadIdx.x;
+  const int w = ws[b];
+  if (w <= k0) return;  // identity slab: nothing to factor, no status
+  const int m = min(rows[b] - w, Lp - Wp);  // tail rows stop at Lp
+  const int k1 = min(k0 + nbk, w);  // the slab's real columns
+  double* panel = fp + (size_t)b * Lp * Wp;
+  double* s = st + 4 * b;
+  __shared__ double red[GNT / 32];
+  __shared__ double colk[NB];  // scaled column k at rows (k, k1)
+  __shared__ double sh_dk;
+  double mind2 = s[0], ncl = s[1], mag = s[3];  // thread 0's copy is used
+  int bad = 0;
+  const double tmax = thr > 1e-300 ? thr : 1e-300;
+  for (int k = k0; k < k1; ++k) {
+    __syncthreads();  // column k is up to date
+    const int nd = w - k - 1;
+    const int nlive = nd + m;
+    // theta = max |a_rk| over the live rows below k, NaN-propagating
+    double t = 0.0;
+    for (int i = tid; i < nlive; i += GNT)
+      t = nan_max(t, fabs(panel[(size_t)live_row(i, nd, k, Wp) * Wp + k]));
+    for (int off = 16; off > 0; off >>= 1)
+      t = nan_max(t, __shfl_xor_sync(0xffffffffu, t, off));
+    if ((tid & 31) == 0) red[tid >> 5] = t;
+    __syncthreads();
+    if (tid == 0) {
+      double theta = red[0];
+      for (int j = 1; j < GNT / 32; ++j) theta = nan_max(theta, red[j]);
+      double d2 = panel[(size_t)k * Wp + k];
+      if (d2 < mind2) mind2 = d2;  // NaN-ignoring: a NaN pivot never wins
+      const double gfloor = theta * theta * (gf / tmax);
+      const bool cl = thr > 0.0 && (!(d2 >= thr) || !(d2 >= gfloor));
+      if (cl) {
+        double d2c = nan_max(nan_max(thr, fabs(d2)), gfloor);
+        if (!isfinite(d2c)) d2c = thr;
+        ncl += 1.0;
+        mag += isfinite(d2) ? d2c - d2 : d2c;
+        d2 = d2c;
+      }
+      const double dk = sqrt(d2);
+      panel[(size_t)k * Wp + k] = dk;
+      sh_dk = dk;
+      if (!isfinite(dk)) bad = 1;
+    }
+    __syncthreads();
+    const double dk = sh_dk;
+    for (int i = tid; i < nlive; i += GNT) {
+      const int r = live_row(i, nd, k, Wp);
+      const double v = panel[(size_t)r * Wp + k] / dk;
+      panel[(size_t)r * Wp + k] = v;
+      if (!isfinite(v)) bad = 1;
+      if (i < k1 - k - 1) colk[i] = v;
+    }
+    __syncthreads();
+    // rank-1 update of the slab's real columns j in (k, k1), lower cells
+    const int nj = k1 - k - 1;
+    if (nj > 0) {
+      for (int e = tid; e < nlive * nj; e += GNT) {
+        const int i = e / nj, jj = e - (e / nj) * nj;
+        const int r = live_row(i, nd, k, Wp);
+        const int j = k + 1 + jj;
+        if (r >= j)
+          panel[(size_t)r * Wp + j] -= panel[(size_t)r * Wp + k] * colk[jj];
+      }
+    }
+  }
+  bad = __syncthreads_or(bad);
+  if (tid == 0) {
+    s[0] = mind2;
+    s[1] = ncl;
+    if (bad) s[2] = 1.0;
+    s[3] = mag;
+  }
+}
+
 }  // namespace
 
 #define CHECK(x)                                  \
@@ -276,6 +407,49 @@ extern "C" int fused_factor_syrk_launch(const double* panels, const int* rows,
           fp, rows, ws, Lp, Wp, k0, nbk);
       CHECK(cudaGetLastError());
     }
+    const int nct = (Wp - k1 + TILE - 1) / TILE;
+    if (nct > 0) {
+      trailing_kernel<<<dim3(nrt * nct, Bp), NT, 0, stream>>>(
+          fp, rows, ws, Lp, Wp, k0, nbk, nct);
+      CHECK(cudaGetLastError());
+    }
+  }
+  if (mp > 0) {
+    const int nt = (mp + TILE - 1) / TILE;
+    syrk_kernel<<<dim3(nt * nt, Bp), NT, 0, stream>>>(fp, u, rows, ws, Lp, Wp,
+                                                       nt);
+    CHECK(cudaGetLastError());
+  }
+  return 0;
+}
+
+// As fused_factor_syrk_launch, plus st: (Bp, 4) fp64 per-lane status, and
+// the clamp threshold thr (0: detect only) with gf = GFLOOR_MULT.
+extern "C" int fused_factor_syrk_guarded_launch(
+    const double* panels, const int* rows, const int* ws, double* fp,
+    double* u, double* st, int Bp, int Lp, int Wp, double thr, double gf,
+    int device, void* stream_) {
+  cudaStream_t stream = (cudaStream_t)stream_;
+  CHECK(cudaSetDevice(device));
+  const long long total = (long long)Bp * Lp * Wp;
+  const long long want = (total + NT - 1) / NT;
+  const int blocks = (int)(want < 132LL * 32 ? want : 132LL * 32);
+  mask_kernel<<<blocks, NT, 0, stream>>>(panels, fp, rows, ws, Lp, Wp, total);
+  CHECK(cudaGetLastError());
+  status_init_kernel<<<(Bp + NT - 1) / NT, NT, 0, stream>>>(st, Bp);
+  CHECK(cudaGetLastError());
+  const int mp = Lp - Wp;
+  if (mp > 0)
+    CHECK(cudaMemsetAsync(u, 0, sizeof(double) * (size_t)Bp * mp * mp,
+                          stream));
+  const int nb = Wp < NB ? Wp : NB;
+  for (int k0 = 0; k0 < Wp; k0 += nb) {
+    const int nbk = nb < Wp - k0 ? nb : Wp - k0;
+    const int k1 = k0 + nbk;
+    guarded_slab_kernel<<<Bp, GNT, 0, stream>>>(fp, rows, ws, st, Lp, Wp, k0,
+                                                nbk, thr, gf);
+    CHECK(cudaGetLastError());
+    const int nrt = (Lp - k1 + TILE - 1) / TILE;
     const int nct = (Wp - k1 + TILE - 1) / TILE;
     if (nct > 0) {
       trailing_kernel<<<dim3(nrt * nct, Bp), NT, 0, stream>>>(

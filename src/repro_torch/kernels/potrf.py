@@ -40,9 +40,13 @@ def _lower_sym(A: torch.Tensor) -> torch.Tensor:
 
 
 def chol_tile_ref(A: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: ``torch.linalg.cholesky`` of the symmetric
-    matrix ``A``'s lower triangle stands for."""
-    return torch.linalg.cholesky(_lower_sym(A))
+    """Plain PyTorch version: ``torch.linalg.cholesky_ex`` of the symmetric
+    matrix ``A``'s lower triangle stands for.  A matrix with a failed pivot
+    gives a NaN factor (the kernel takes the square root of the negative
+    pivot; the reference's xla lowering NaN-fills), never an exception."""
+    L, info = torch.linalg.cholesky_ex(_lower_sym(A))
+    return torch.where(info > 0, torch.full((), float("nan"), dtype=L.dtype,
+                                            device=L.device), L)
 
 
 def chol_tile(A: torch.Tensor) -> torch.Tensor:

@@ -8,18 +8,30 @@ shapes the main path does not reach (partial 64-wide blocks, Wp not a power
 of two, garbage pad cells and garbage above the diagonal, strided row and
 column slices), to 1e-10 relative; the wrappers' argument checks raise; and
 small factorizations on the card — the levels path and the sequential and
-mixed routes — match the CPU run."""
+mixed routes, the guarded levels path and ``cholesky_many`` — match the
+CPU run.  The guarded kernel is held against its plain version on groups
+with indefinite lanes and a zero pivot under large off-diagonals, with
+and without a clamp threshold; a negative pivot gives NaN on every
+factor kernel, never a hang or garbage."""
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import DeviceEngine, cholesky
+from repro_torch.core import (
+    BreakdownError,
+    DeviceEngine,
+    cholesky,
+    cholesky_many,
+)
 from repro_torch.kernels import (
     chol_tile,
     chol_tile_ref,
     fused_factor_syrk,
+    fused_factor_syrk_guarded,
+    fused_factor_syrk_guarded_ref,
     fused_factor_syrk_ref,
     gemm_nt,
+    live_cells,
     gemm_nt_ref,
     ops,
     potrf_ref,
@@ -31,6 +43,7 @@ from repro_torch.kernels import (
     trsm_rlt_ref,
 )
 from repro_torch.sparse import kkt_like, laplacian_3d
+from repro_torch.sparse.gen import kkt_saddle, neumann_laplacian
 
 pytestmark = pytest.mark.cuda
 
@@ -243,3 +256,124 @@ def test_seq_and_mixed_factor_on_card_match_cpu(card, kw):
     x = Fg.solve(b, backend="device")   # stages the host factor on the card
     assert Fg.dstore.eng.device.type == "cuda"
     assert np.linalg.norm(A @ x - b) <= 1e-10 * np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# the guarded kernel, NaN on a failed pivot, the guard and multi-matrix paths
+# ---------------------------------------------------------------------------
+def _breaking_group(extents, Lp, Wp, seed):
+    """``_group`` with lane 1 indefinite (a negative pivot at column 2) and
+    lane 2 with a zero pivot under large off-diagonals in column 0."""
+    p, rows, ws = _group(extents, Lp, Wp, seed)
+    p[1, 2, 2] = -3.0
+    p[2, :, 0] = np.where(np.arange(Lp) < ws[2], 10.0, p[2, :, 0])
+    p[2, 0, 0] = 0.0
+    return p, rows, ws
+
+
+def _same_nonfinite_and_close(x, ref, tol, live=None):
+    if live is not None:  # the other cells of a broken lane: unspecified
+        x, ref = x[live], ref[live]
+    fin = torch.isfinite(ref)
+    assert torch.equal(torch.isfinite(x), fin)
+    if fin.any():
+        assert _rel(x[fin], ref[fin]) <= tol
+
+
+@pytest.mark.parametrize("thr", [0.0, 2.0 ** -30, 0.25])
+@pytest.mark.parametrize("extents,Lp,Wp", [
+    ([(20, 8), (16, 16), (26, 12), (9, 1), (0, 0)], 32, 16),
+    ([(300, 100), (150, 64), (101, 99), (0, 0)], 320, 100),
+    ([(600, 130), (257, 200), (600, 256)], 768, 256),
+])
+def test_guarded_kernel_matches_plain(card, extents, Lp, Wp, thr):
+    p, rows, ws = (torch.from_numpy(a).to(card)
+                   for a in _breaking_group(extents, Lp, Wp, 1))
+    before = (fused_factor_syrk.launches, fused_factor_syrk_guarded.launches)
+    fp, u, st = fused_factor_syrk(p, rows, ws, guard=True, thr=thr)
+    torch.cuda.synchronize()
+    assert (fused_factor_syrk.launches,
+            fused_factor_syrk_guarded.launches) == (before[0], before[1] + 1)
+    fr, ur, sr = fused_factor_syrk_guarded_ref(p, rows, ws, thr)
+    assert torch.equal(st[:, 1:3], sr[:, 1:3])   # clamp counts, flags
+    assert torch.allclose(st[:, [0, 3]], sr[:, [0, 3]], rtol=1e-10, atol=0)
+    _same_nonfinite_and_close(fp, fr, 1e-10,
+                              live_cells(rows, ws, Lp, Wp, card))
+    if Lp > Wp:
+        _same_nonfinite_and_close(u, ur, 1e-10)
+    if thr == 0:
+        assert st[1, 2] == 1 and st[1, 0] < 0 and st[2, 2] == 1
+    else:
+        assert st[1, 1] >= 1 and st[2, 1] >= 1 and not st[:, 2].any()
+
+
+def test_negative_pivot_gives_nan(card):
+    p, rows, ws = (torch.from_numpy(a).to(card)
+                   for a in _breaking_group([(300, 100), (150, 64),
+                                             (101, 99)], 320, 100, 2))
+    fp, u = fused_factor_syrk(p, rows, ws)
+    torch.cuda.synchronize()
+    assert torch.isfinite(fp[0]).all()
+    for b in (1, 2):
+        assert not torch.isfinite(fp[b]).all()
+    A = _spd_garbage(100, 3, card)
+    A[40, 40] = -5.0
+    L = chol_tile(A)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L[:40, :40]).all() and torch.isnan(L[40, 40])
+    assert torch.isnan(chol_tile_ref(A)).all()
+
+
+def test_guard_off_keeps_the_unguarded_launches(card):
+    A = laplacian_3d(8)
+    counts = []
+    for guard in ("off", "raise"):
+        before = (fused_factor_syrk.launches,
+                  fused_factor_syrk_guarded.launches)
+        F = cholesky(A, device_engine=DeviceEngine(device=card), guard=guard)
+        nb = F.stats["schedule"]["batches"]
+        counts.append((fused_factor_syrk.launches - before[0],
+                       fused_factor_syrk_guarded.launches - before[1], nb))
+    (u0, g0, nb), (u1, g1, _) = counts
+    assert (u0, g0) == (nb, 0) and (u1, g1) == (0, nb)
+
+
+@pytest.mark.parametrize("guard", ["raise", "perturb"])
+def test_guarded_levels_on_card_match_cpu(card, guard):
+    A = laplacian_3d(8) if guard == "raise" else neumann_laplacian(12)
+    Fg = cholesky(A, device_engine=DeviceEngine(device=card), guard=guard)
+    Fc = cholesky(A, device="cpu", sym=Fg.sym, guard=guard)
+    rg, rc = Fg.guard_report, Fc.guard_report
+    assert [(q["supernode"], q["n_clamped"]) for q in rg.perturbations] == \
+        [(q["supernode"], q["n_clamped"]) for q in rc.perturbations]
+    scale = np.abs(Fc.store.storage).max()
+    assert np.abs(Fg.store.storage - Fc.store.storage).max() <= 1e-10 * scale
+    b = np.asarray(A @ np.random.default_rng(0).standard_normal(A.shape[0]))
+    x = Fg.solve(b, backend="device")
+    assert np.linalg.norm(A @ x - b) <= 1e-10 * np.linalg.norm(b)
+    with pytest.raises(BreakdownError) as eg:
+        cholesky(kkt_saddle(8), device_engine=DeviceEngine(device=card),
+                 guard="raise")
+    with pytest.raises(BreakdownError) as ec:
+        cholesky(kkt_saddle(8), device="cpu", guard="raise")
+    assert [q["supernode"] for q in eg.value.report.broken] == \
+        [q["supernode"] for q in ec.value.report.broken]
+
+
+def test_cholesky_many_on_card_matches_cpu(card):
+    import scipy.sparse as sp
+
+    A = laplacian_3d(8)
+    As = [sp.csc_matrix(A + s * sp.eye(A.shape[0])) for s in (0.0, 1.0, 2.5)]
+    BG = cholesky_many(As, device_engine=DeviceEngine(device=card),
+                       guard="raise")
+    BC = cholesky_many(As, device="cpu", guard="raise")
+    scale = np.abs(BC.storage).max()
+    assert np.abs(BG.storage - BC.storage).max() <= 1e-10 * scale
+    b = np.random.default_rng(2).standard_normal((3, A.shape[0], 2))
+    x = BG.solve(b)
+    xd = BG.solve(torch.from_numpy(b).to(card))
+    assert xd.device.type == "cuda"
+    assert np.abs(xd.cpu().numpy() - x).max() <= 1e-12 * np.abs(x).max()
+    for i, Ai in enumerate(As):
+        assert np.linalg.norm(Ai @ x[i] - b[i]) <= 1e-10 * np.linalg.norm(b[i])

@@ -70,13 +70,19 @@ def test_entry_points_raise_without_a_card(no_card):
     assert np.linalg.norm(A @ x - 1.0) < 1e-12 * np.sqrt(A.shape[0])
 
 
-def test_unported_routes_raise_not_implemented():
-    # the sequential RL/RLB and mixed-offload routes run now
-    # (tests/test_torch_seq.py::test_formerly_unported_routes_run)
+def test_unported_routes_raise_not_implemented(tmp_path):
+    # the guard and the plan cache run now (tests/test_torch_guard.py,
+    # tests/test_torch_many.py): what is left are the reference's own
+    # errors, and the plan lint of the static analyzer (not ported yet)
+    from repro_torch.core import CachedPlan, PlanCache
+
     A = laplacian_2d(6)
-    for kw in ({"guard": "raise"}, {"plan": object()},
-               {"schedule": "seq", "guard": "perturb"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cholesky(A, device="cpu", **kw)
+    with pytest.raises(ValueError, match="perturb"):
+        cholesky(A, device="cpu", schedule="seq", guard="perturb")
+    with pytest.raises(ValueError, match="unknown guard"):
+        cholesky(A, device="cpu", guard="xx")
     with pytest.raises(ValueError):
         cholesky(A, device="cpu", method="xx")
+    path = PlanCache().get(A).save(tmp_path)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        CachedPlan.load(path, lint=True)
