@@ -6,7 +6,9 @@ card:
 
 1. card info from ``nvidia-smi`` (fails without a CUDA card);
 2. builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
-   ``nvcc`` per source, all started together, into ``build/kernels/``);
+   ``nvcc`` per source, all started together, into ``build/kernels/``),
+   prints each kernel's ``ptxas`` registers and spills, and counts the
+   fp64 tensor-core instructions (DMMA) in the SASS of the DMMA kernels;
 3. holds each kernel against its plain PyTorch version and times kernel,
    plain version and a library yardstick: ``fused_factor_syrk`` and
    ``tri_inv_lower`` on group buffers of ``lap3d_40``'s fused schedule (the
@@ -14,7 +16,9 @@ card:
    cells); ``potrf`` (with ``chol_tile``), ``trsm_rlt``, ``syrk_ln``,
    ``gemm_nt`` and the one-panel ``fused_factor_syrk`` at the shapes the
    sequential path gives them on ``lap3d_40`` (its widest supernode, its
-   largest tail, that tail's largest RLB block pair);
+   largest tail, that tail's largest RLB block pair and one small 64 x 64
+   pair); every fused call's kernel launches, counted by
+   ``torch.profiler``, against the slab formula;
 4. drives the levels main path — ``cholesky(A)`` then
    ``F.solve(b, backend="device")`` with 1 and 64 right-hand sides — on
    ``lap3d_40`` and ``kkt_256``, and checks residuals, dispatch and transfer
@@ -57,6 +61,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -176,6 +181,64 @@ def fused_work(g) -> tuple[float, float]:
     return flops, nbytes
 
 
+def fused_launches(Bp: int, Lp: int, Wp: int, guard: bool = False) -> int:
+    """Kernel launches of one fused call, from the slab loop of
+    ``csrc/fused_factor_syrk.cu``: the mask pass (and, guarded, the status
+    init), per 64-column slab the panel launch (guarded: the sweep) and,
+    while real columns remain right of the slab, the trailing launch, then
+    the SYRK when Lp > Wp.  The memset of ``u`` is not a kernel."""
+    nb = min(Wp, 64)
+    n = 2 if guard else 1
+    for k0 in range(0, Wp, nb):
+        n += 1 + (Wp > k0 + nb)
+    return n + (Lp > Wp)
+
+
+def traced(fn, reps: int = 1) -> tuple[float, float]:
+    """(kernel launches, device ms) of the port's kernels per call of
+    ``fn``, from a ``torch.profiler`` trace of ``reps`` calls: the
+    device-side events of the kernels of ``csrc/`` (their names carry the
+    sources' anonymous namespace).  The tracer is warmed inside its window
+    first, so its start-up drops no event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").sum().item()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for ev in prof.events():
+        if (ev.device_type == DeviceType.CUDA
+                and "anonymous namespace" in ev.name):
+            n += 1
+            us += getattr(ev, "device_time_total",
+                          getattr(ev, "cuda_time_total", 0.0))
+    return n / reps, us / 1e3 / reps
+
+
+def check_launches(what: str, fn, want: int) -> dict:
+    """The trace's launch count of one call against the slab formula, and
+    the call's device time.  The tracer drops an event now and then (seen
+    on the card: a guarded call traced 3 of its 6 launches in one session
+    and all 6 in the next), and a drop can only lower the count, so up to
+    three traces are taken and the highest count is held to the formula."""
+    got, dev_ms = traced(fn)
+    for _ in range(2):
+        if got == want:
+            break
+        got, dev_ms = max((got, dev_ms), traced(fn))
+    if got != want:
+        raise AssertionError(f"{what}: {got} kernel launches in the trace, "
+                             f"{want} from the slab formula")
+    return {"device_launches_per_call": int(got), "device_ms": dev_ms}
+
+
 def kernel_phase(plan, peaks):
     """Each kernel against its plain version on three groups of lap3d_40."""
     import torch
@@ -232,6 +295,9 @@ def kernel_phase(plan, peaks):
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                    bound_by="operations" if flops / peaks[0]
                    >= nbytes / peaks[1] else "bytes", gflop=flops / 1e9)
+        rec.update(check_launches(f"fused_factor_syrk {label}",
+                                  lambda: fused_factor_syrk(p, rows, ws),
+                                  fused_launches(Bp, Lp, Wp)))
         results["fused_factor_syrk"].append(rec)
         print("kernel fused_factor_syrk", json.dumps(rec), flush=True)
 
@@ -355,6 +421,12 @@ def seq_kernel_phase(sym, peaks):
                   lambda: gemm_nt(Ra, Rb), lambda: gemm_nt_ref(Ra, Rb),
                   lambda: Ra @ Rb.mT, 2.0 * nr * nc * w,
                   8.0 * (nr * w + nc * w + nr * nc)))
+    # a small RLB pair of the same tail: one 64 x 64 tile, launch bound
+    Sa, Sb = T[:64], T[m - 64:]
+    cases.append(("gemm_nt", f"small RLB pair M=64 N=64 K={w}",
+                  lambda: gemm_nt(Sa, Sb), lambda: gemm_nt_ref(Sa, Sb),
+                  lambda: Sa @ Sb.mT, 2.0 * 64 * 64 * w,
+                  8.0 * (64 * w + 64 * w + 64 * 64)))
     for s_, tag in ((s_wide, "widest"), (s_tail, "largest_tail")):
         # one exact panel (1, rows, w), as DeviceEngine.factor stages it
         W, M = int(ws[s_]), int(ms[s_])
@@ -404,6 +476,12 @@ def seq_kernel_phase(sym, peaks):
                    plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                    bound_by=by, gflop=flops / 1e9,
                    launches_per_call=per_call)
+        if name == "fused_factor_syrk":
+            _, Lp_, Wp_ = out[0].shape
+            rec.update(check_launches(f"fused_factor_syrk {label}", fn,
+                                      fused_launches(1, Lp_, Wp_)))
+        elif name == "gemm_nt":  # small calls: the wall time is the host's
+            rec.update(check_launches(f"gemm_nt {label}", fn, 1))
         results.setdefault(name, []).append(rec)
         print(f"kernel {name}", json.dumps(rec), flush=True)
     torch.cuda.empty_cache()
@@ -743,7 +821,8 @@ def guarded_kernel_phase(plan, kkt_groups, thr_lap: float, thr_kkt: float,
     kkt_saddle_64 groups whose lanes clamp; each at thr = 0 and at the
     matrix's perturb threshold.  fp and u at REL_TOL (NaN where the plain
     version has NaN), status counts and flags equal, min d^2 and magnitude
-    at rtol 1e-10."""
+    at rtol 1e-10.  The launches and device time are traced once per
+    buffer, at thr = 0 (the launches do not depend on thr)."""
     import torch
 
     from repro_torch.kernels.fused import (
@@ -805,6 +884,12 @@ def guarded_kernel_phase(plan, kkt_groups, thr_lap: float, thr_kkt: float,
                        plain_ms=plain_ms, unguarded_ms=unguarded_ms,
                        library_ms=None, bound_ms=bound, bound_by=by,
                        gflop=flops / 1e9)
+            if thr == 0.0:  # the launches do not depend on thr
+                trace = check_launches(
+                    f"fused_factor_syrk_guarded {label}",
+                    lambda: fused_factor_syrk_guarded(p, rows, ws, 0.0),
+                    fused_launches(Bp, Lp, Wp, guard=True))
+            rec.update(trace)
             out.append(rec)
             print("kernel fused_factor_syrk_guarded", json.dumps(rec),
                   flush=True)
@@ -1014,6 +1099,39 @@ def many_and_plan_phases(mats):
 
 
 
+def entry_name(line: str) -> str:
+    """The last name of the mangled entry function in a ptxas line
+    (``_ZN<len><namespace><len><name>E...`` gives ``name``)."""
+    found = re.search(r"_ZN(\w+)", line)
+    rest, name = found.group(1) if found else "", "?"
+    while rest[:1].isdigit():
+        digits = re.match(r"\d+", rest).group()
+        n = int(digits)
+        name, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    return name
+
+
+def sass_dmma(build, names) -> dict:
+    """The fp64 tensor-core instructions (DMMA.*) in each built library's
+    SASS, from ``cuobjdump -sass`` beside ``nvcc``; raises if a library
+    holds none (the DMMA kernels must not have fallen back to FMAs)."""
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return {"cuobjdump": "not found"}
+    out = {}
+    for name in names:
+        sass = subprocess.run(
+            [str(tool), "-sass", str(build.library_path(name))],
+            capture_output=True, text=True, check=True, timeout=300).stdout
+        ops: dict = {}
+        for op in re.findall(r"\bDMMA\.[\w.]+", sass):
+            ops[op] = ops.get(op, 0) + 1
+        if not ops:
+            raise AssertionError(f"no DMMA instruction in {name}'s SASS")
+        out[name] = ops
+    return out
+
+
 def main() -> None:
     smi, kind, peaks = card_info()
     sys.path.insert(0, str(ROOT / "src"))
@@ -1040,9 +1158,15 @@ def main() -> None:
     for name in _build.SIGNATURES:
         log = _build.library_path(name).with_suffix(".so.log")
         if log.exists():
+            kernel = "?"
             for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    kernel = entry_name(line)
+                elif "registers" in line or "spill" in line:
+                    print(f"ptxas {name} {kernel}: {line.strip()}")
+    print("sass", json.dumps(sass_dmma(_build, ("gemm_nt",
+                                                "fused_factor_syrk"))),
+          flush=True)
 
     mats = {}
     for name in ("lap3d_40", "kkt_256"):
@@ -1129,12 +1253,26 @@ def main() -> None:
         "gemm_nt": ("gemm_nt.cu", "gemm.py:32"),
         "fused_factor_syrk_guarded": ("fused_factor_syrk.cu", "fused.py:251"),
     }
+    design = {  # the two redesigned on fp64 tensor cores, the first versions
+        "fused_factor_syrk": "redesigned: one panel launch per 64-column "
+        "slab (blocked 8-wide factor and doubling inverse of the diagonal "
+        "block in shared memory, A21 L11^-T on DMMA) + DMMA trailing "
+        "update and SYRK (mma.sync m16n8k8 f64)",
+        "gemm_nt": "redesigned: DMMA tile (mma.sync m16n8k8 f64, 8 warps, "
+        "cp.async 3-stage ring of 32-deep K chunks)",
+        "fused_factor_syrk_guarded": "one-block column sweep per slab + "
+        "the DMMA trailing update and SYRK",
+        "tri_inv_lower": "first version: scalar FMA",
+        "trsm_rlt": "first version: scalar FMA tile",
+        "chol_tile": "first version: one-block column sweep",
+        "syrk_ln": "first version: scalar FMA tile",
+    }
     kernels = []
     for name in KERNEL_NAMES:
         recs = kres[name]
         big = recs[0]
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "design": design[name],
             "source": "src/repro_torch/kernels/csrc/" + src[name][0],
             "replaces": "src/repro/kernels/" + src[name][1],
             "launches": totals[name],

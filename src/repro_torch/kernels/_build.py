@@ -29,8 +29,8 @@ _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
 #: exported C functions of each library: name -> (argtypes, restype)
 SIGNATURES = {
     "fused_factor_syrk": {
-        "fused_factor_syrk_launch": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-                                     _I),
+        "fused_factor_syrk_launch": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "fused_factor_syrk_guarded_launch": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _I, _P], _I),
         "fused_factor_syrk_error": ([_I], ctypes.c_char_p),
@@ -154,6 +154,16 @@ def check_matrix(name: str, t, device) -> None:
         raise ValueError(f"{name} must have contiguous rows")
     if not (t.shape[1] <= t.stride(0) < 2 ** 31) and t.shape[0] > 1:
         raise ValueError(f"{name} has an unsupported row stride {t.stride(0)}")
+
+
+def stream(device) -> int:
+    """Handle of the current CUDA stream of ``device`` (a CUDA tensor's
+    device, so its index is set): what ``torch.cuda.current_stream(device)
+    .cuda_stream`` gives, without building a Stream object, which costs a
+    small kernel's launch several microseconds of host time."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def ld(t) -> int:

@@ -178,6 +178,8 @@ def _check_group(panels: torch.Tensor, rows: torch.Tensor,
     Bp, Lp, Wp = panels.shape
     if Lp < Wp or Wp < 1:
         raise ValueError(f"bad panel shape {tuple(panels.shape)}")
+    if Bp > 65535:
+        raise ValueError(f"{Bp} lanes; the kernels' grid takes at most 65535")
     for name, t in (("rows", rows), ("ws", ws)):
         if (t.device != panels.device or t.dtype != torch.int32
                 or t.shape != (Bp,) or not t.is_contiguous()):
@@ -214,11 +216,14 @@ def fused_factor_syrk(panels: torch.Tensor, rows: torch.Tensor,
     Bp, Lp, Wp = panels.shape
     fp = torch.empty_like(panels)
     u = panels.new_empty((Bp, Lp - Wp, Lp - Wp))
+    # the panel launches' per-(slab, lane) counters, zeroed by the kernel
+    nslab = -(-Wp // min(Wp, 64))
+    cnt = torch.empty(nslab * Bp, dtype=torch.int32, device=panels.device)
     lib = _build.load("fused_factor_syrk")
     rc = lib.fused_factor_syrk_launch(
         panels.data_ptr(), rows.data_ptr(), ws.data_ptr(), fp.data_ptr(),
-        u.data_ptr(), Bp, Lp, Wp, panels.device.index or 0,
-        torch.cuda.current_stream(panels.device).cuda_stream)
+        u.data_ptr(), cnt.data_ptr(), Bp, Lp, Wp, panels.device.index,
+        _build.stream(panels.device))
     _build.check(lib, "fused_factor_syrk_error", rc, "fused_factor_syrk")
     fused_factor_syrk.launches += 1
     return fp, u
@@ -254,8 +259,7 @@ def fused_factor_syrk_guarded(panels: torch.Tensor, rows: torch.Tensor,
     rc = lib.fused_factor_syrk_guarded_launch(
         panels.data_ptr(), rows.data_ptr(), ws.data_ptr(), fp.data_ptr(),
         u.data_ptr(), st.data_ptr(), Bp, Lp, Wp, thr, GFLOOR_MULT,
-        panels.device.index or 0,
-        torch.cuda.current_stream(panels.device).cuda_stream)
+        panels.device.index, _build.stream(panels.device))
     _build.check(lib, "fused_factor_syrk_error", rc,
                  "fused_factor_syrk_guarded")
     fused_factor_syrk_guarded.launches += 1

@@ -42,8 +42,7 @@ def gemm_nt(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _build.load("gemm_nt")
     rc = lib.gemm_nt_launch(
         a.data_ptr(), _build.ld(a), b.data_ptr(), _build.ld(b), c.data_ptr(),
-        max(N, 1), M, N, K, a.device.index or 0,
-        torch.cuda.current_stream(a.device).cuda_stream)
+        max(N, 1), M, N, K, a.device.index, _build.stream(a.device))
     _build.check(lib, "gemm_nt_error", rc, "gemm_nt")
     gemm_nt.launches += 1
     return c

@@ -67,7 +67,7 @@ def chol_tile(A: torch.Tensor) -> torch.Tensor:
     lib = _build.load("chol_tile")
     rc = lib.chol_tile_launch(
         A.data_ptr(), _build.ld(A), L.data_ptr(), n, n, A.device.index or 0,
-        torch.cuda.current_stream(A.device).cuda_stream)
+        _build.stream(A.device))
     _build.check(lib, "chol_tile_error", rc, "chol_tile")
     chol_tile.launches += 1
     return L

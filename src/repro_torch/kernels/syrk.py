@@ -37,7 +37,7 @@ def syrk_ln(a: torch.Tensor) -> torch.Tensor:
     lib = _build.load("syrk_ln")
     rc = lib.syrk_ln_launch(
         a.data_ptr(), _build.ld(a), c.data_ptr(), M, M, K,
-        a.device.index or 0, torch.cuda.current_stream(a.device).cuda_stream)
+        a.device.index or 0, _build.stream(a.device))
     _build.check(lib, "syrk_ln_error", rc, "syrk_ln")
     syrk_ln.launches += 1
     return c

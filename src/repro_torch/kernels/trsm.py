@@ -47,7 +47,7 @@ def tri_inv_lower(L: torch.Tensor) -> torch.Tensor:
     lib = _build.load("tri_inv")
     rc = lib.tri_inv_lower_launch(
         L.data_ptr(), X.data_ptr(), Bp, Wp, L.device.index or 0,
-        torch.cuda.current_stream(L.device).cuda_stream)
+        _build.stream(L.device))
     _build.check(lib, "tri_inv_lower_error", rc, "tri_inv_lower")
     tri_inv_lower.launches += 1
     return X
@@ -109,7 +109,7 @@ def trsm_rlt(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     rc = lib.trsm_rlt_launch(
         B.data_ptr(), _build.ld(B), L.data_ptr(), _build.ld(L),
         invd.data_ptr(), X.data_ptr(), W, M, W, L.device.index or 0,
-        torch.cuda.current_stream(L.device).cuda_stream)
+        _build.stream(L.device))
     _build.check(lib, "trsm_rlt_error", rc, "trsm_rlt")
     trsm_rlt.launches += 1
     return X

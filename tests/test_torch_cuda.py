@@ -91,6 +91,42 @@ def test_fused_kernel_matches_plain(card, extents, Lp, Wp):
         assert _rel(u, ur) <= 1e-10
 
 
+def test_fused_kernel_multi_slab_mixed_widths(card):
+    # widths neither multiples of 64 nor equal across lanes, three slabs,
+    # a lane exactly one slab wide, a pad lane, garbage in every pad cell
+    extents, Lp, Wp = [(600, 190), (300, 130), (64, 64), (0, 0)], 640, 192
+    p, rows, ws = (torch.from_numpy(a).to(card)
+                   for a in _group(extents, Lp, Wp, 5))
+    fp, u = fused_factor_syrk(p, rows, ws)
+    torch.cuda.synchronize()
+    fr, ur = fused_factor_syrk_ref(p, rows, ws)
+    assert _rel(fp, fr) <= 1e-10 and _rel(u, ur) <= 1e-10
+    eye = torch.eye(Wp, dtype=torch.float64, device=card)
+    assert torch.equal(fp[3, :Wp], eye) and not u[3].any()
+
+
+def test_fused_kernel_ill_conditioned_diagonal(card):
+    # a graded diagonal block, diag(A) = logspace(0, -6): the panel solve
+    # through the explicit inverse of each 64-wide diagonal block must still
+    # agree with the plain version's triangular solve
+    rng = np.random.default_rng(9)
+    extents, Lp, Wp = [(300, 128), (200, 100)], 320, 128
+    p, rows, ws = _group(extents, Lp, Wp, 9)
+    w = 128
+    G = rng.standard_normal((w, w))
+    M = G @ G.T / w + 2 * np.eye(w)
+    d = 1 / np.sqrt(np.diag(M))
+    s = np.sqrt(np.logspace(0, -6, w))
+    A = (s * d)[:, None] * M * (s * d)[None, :]
+    lo = np.tril_indices(w)
+    p[0, :w, :w][lo] = A[lo]
+    p, rows, ws = (torch.from_numpy(a).to(card) for a in (p, rows, ws))
+    fp, u = fused_factor_syrk(p, rows, ws)
+    torch.cuda.synchronize()
+    fr, ur = fused_factor_syrk_ref(p, rows, ws)
+    assert _rel(fp, fr) <= 1e-10 and _rel(u, ur) <= 1e-10
+
+
 @pytest.mark.parametrize("Bp,Wp", [(3, 8), (2, 40), (2, 64), (2, 100),
                                    (1, 300)])
 def test_tri_inv_kernel_matches_plain(card, Bp, Wp):
@@ -154,6 +190,42 @@ def test_gemm_nt_kernel_matches_plain(card, m, k, n):
         torch.cuda.synchronize()
         assert gemm_nt.launches == before + 1
         assert _rel(c, gemm_nt_ref(a, b)) <= 1e-10
+
+
+@pytest.mark.parametrize("k", [1, 3, 4, 5, 8, 17])
+def test_gemm_nt_short_k(card, k):
+    # K below, at and just past the tile's 4-deep MMA step and 16-deep chunk
+    a, b = _randn((70, k), k, card), _randn((45, k), k + 100, card)
+    c = gemm_nt(a, b)
+    torch.cuda.synchronize()
+    assert _rel(c, gemm_nt_ref(a, b)) <= 1e-10
+
+
+@pytest.mark.parametrize("which", ["a", "b", "both"])
+@pytest.mark.parametrize("ld,off", [(37, 1), (38, 1), (39, 0), (40, 3)])
+def test_gemm_nt_odd_ld_and_offset(card, which, ld, off):
+    # an odd leading dimension or an odd-element base offset on either
+    # operand: the kernel must fall back to 8-byte copies for that operand
+    m, n, k = 90, 70, 34   # k even: the contiguous operand copies 16 bytes
+    big = _randn((m + n + 2, ld), ld + off, card)
+    odd_a = big[:m, off:off + k]
+    odd_b = big[m + 1:m + 1 + n, off:off + k]
+    a = odd_a if which in ("a", "both") else odd_a.contiguous()
+    b = odd_b if which in ("b", "both") else _randn((n, k), 5, card)
+    c = gemm_nt(a, b)
+    torch.cuda.synchronize()
+    assert _rel(c, gemm_nt_ref(a, b)) <= 1e-10
+
+
+@pytest.mark.parametrize("m,n", [(1, 65), (65, 1), (1, 1), (65, 65),
+                                 (1, 130), (129, 65)])
+def test_gemm_nt_thin_and_edge_shapes(card, m, n):
+    a = _randn((m, 77), m, card)
+    b = _randn((n, 77), 1000 + n, card)
+    c = gemm_nt(a, b)
+    torch.cuda.synchronize()
+    assert c.shape == (m, n)
+    assert _rel(c, gemm_nt_ref(a, b)) <= 1e-10
 
 
 @pytest.mark.parametrize("m,k", [(1, 3), (65, 1), (137, 260), (200, 64)])
