@@ -13,12 +13,14 @@ card:
    plain version and a library yardstick: ``fused_factor_syrk`` and
    ``tri_inv_lower`` on group buffers of ``lap3d_40``'s fused schedule (the
    largest group, a tail-heavy group, a group with pad lanes and garbage pad
-   cells); ``potrf`` (with ``chol_tile``), ``trsm_rlt``, ``syrk_ln``,
-   ``gemm_nt`` and the one-panel ``fused_factor_syrk`` at the shapes the
-   sequential path gives them on ``lap3d_40`` (its widest supernode, its
-   largest tail, that tail's largest RLB block pair and one small 64 x 64
-   pair); every fused call's kernel launches, counted by
-   ``torch.profiler``, against the slab formula;
+   cells) and ``tri_inv_lower`` on one 128-wide potrf block; ``potrf``
+   (with ``chol_tile``), ``trsm_rlt``, ``syrk_ln``, ``gemm_nt`` and the
+   one-panel ``fused_factor_syrk`` at the shapes the sequential path gives
+   them on ``lap3d_40`` (its widest supernode, its largest tail and one
+   small tail, the largest tail's largest RLB block pair and one small
+   64 x 64 pair); the kernel launches of every fused, ``tri_inv_lower``,
+   ``trsm_rlt`` and ``gemm_nt`` call checked, counted by
+   ``torch.profiler``, against the formula of its launch loop;
 4. drives the levels main path — ``cholesky(A)`` then
    ``F.solve(b, backend="device")`` with 1 and 64 right-hand sides — on
    ``lap3d_40`` and ``kkt_256``, and checks residuals, dispatch and transfer
@@ -240,7 +242,8 @@ def check_launches(what: str, fn, want: int) -> dict:
 
 
 def kernel_phase(plan, peaks):
-    """Each kernel against its plain version on three groups of lap3d_40."""
+    """The fused kernel and tri_inv_lower against their plain versions on
+    three groups of lap3d_40, and tri_inv_lower on one potrf block."""
     import torch
 
     from repro_torch.kernels.fused import (
@@ -248,7 +251,7 @@ def kernel_phase(plan, peaks):
         fused_factor_syrk,
         fused_factor_syrk_ref,
     )
-    from repro_torch.kernels.trsm import tri_inv_lower, tri_inv_lower_ref
+    from repro_torch.kernels.potrf import NB
 
     groups = [g for lvl in plan.groups for g in lvl]
     largest = max(groups, key=lambda g: (g.Lp * g.Wp, g.Wp))
@@ -301,32 +304,57 @@ def kernel_phase(plan, peaks):
         results["fused_factor_syrk"].append(rec)
         print("kernel fused_factor_syrk", json.dumps(rec), flush=True)
 
-        L = fp[:, :Wp, :].contiguous()
-        X = tri_inv_lower(L)
-        torch.cuda.synchronize()
-        Xr = tri_inv_lower_ref(L)
-        ax, ex = rel_err(X, Xr)
-        if not ex <= REL_TOL:
-            raise AssertionError(f"tri_inv_lower {label}: rel err {ex:.3e}")
-        ms = cuda_ms(lambda: tri_inv_lower(L), reps)
-        plain_ms = cuda_ms(lambda: tri_inv_lower_ref(L), reps)
-        eye = torch.eye(Wp, dtype=torch.float64, device="cuda").expand_as(L)
-        lib_ms = cuda_ms(
-            lambda: torch.linalg.solve_triangular(L, eye, upper=False), reps)
-        flops = sum(float(w) ** 3 / 3 for w in g.ws_arr[:g.B])
-        # the lower triangle of each input lane read, the whole output written
-        nbytes = 8.0 * Bp * (Wp * (Wp + 1) / 2 + Wp * Wp)
-        bound = max(flops / peaks[0], nbytes / peaks[1]) * 1e3
-        rec = dict(case=label, Bp=Bp, B=g.B, Wp=Wp, max_abs_err=ax,
-                   rel_err=ex, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=bound,
-                   bound_by="operations" if flops / peaks[0]
-                   >= nbytes / peaks[1] else "bytes", gflop=flops / 1e9)
-        results["tri_inv_lower"].append(rec)
-        print("kernel tri_inv_lower", json.dumps(rec), flush=True)
-        del p, fp, u, fr, ur, a, D, S, B, L, X, Xr
+        # the lanes as invert_diag passes them: a view of the factored group
+        results["tri_inv_lower"].append(tri_inv_case(
+            label, fp[:, :Wp, :], g.ws_arr[:g.B], reps, peaks))
+        del p, fp, u, fr, ur, a, D, S, B
         torch.cuda.empty_cache()
+    # one diagonal block of the blocked potrf (NB = 128 columns a step)
+    G = torch.randn((NB, NB), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    Lb = torch.linalg.cholesky(G @ G.T / NB + 2.0 * torch.eye(
+        NB, device="cuda", dtype=torch.float64)).contiguous()[None]
+    results["tri_inv_lower"].append(tri_inv_case(
+        f"potrf block {NB}", Lb, [NB], 10, peaks))
     return results
+
+
+def tri_inv_case(label, L, ws, reps, peaks) -> dict:
+    """``tri_inv_lower`` on the (Bp, Wp, Wp) lanes ``L`` (lane widths
+    ``ws``): against its plain version, timed beside the library call, its
+    launches traced against ``tri_inv_launches``."""
+    import torch
+
+    from repro_torch.kernels.trsm import (
+        tri_inv_launches,
+        tri_inv_lower,
+        tri_inv_lower_ref,
+    )
+
+    Bp, Wp, _ = L.shape
+    X = tri_inv_lower(L)
+    torch.cuda.synchronize()
+    Xr = tri_inv_lower_ref(L)
+    ax, ex = rel_err(X, Xr)
+    if not ex <= REL_TOL:
+        raise AssertionError(f"tri_inv_lower {label}: rel err {ex:.3e}")
+    ms = cuda_ms(lambda: tri_inv_lower(L), reps)
+    plain_ms = cuda_ms(lambda: tri_inv_lower_ref(L), reps)
+    eye = torch.eye(Wp, dtype=torch.float64, device="cuda").expand_as(L)
+    lib_ms = cuda_ms(
+        lambda: torch.linalg.solve_triangular(L, eye, upper=False), reps)
+    flops = sum(float(w) ** 3 / 3 for w in ws)
+    # the lower triangle of each input lane read, the whole output written
+    nbytes = 8.0 * Bp * (Wp * (Wp + 1) / 2 + Wp * Wp)
+    bound, by = work_bound(flops, nbytes, peaks)
+    rec = dict(case=label, Bp=Bp, B=len(ws), Wp=Wp, max_abs_err=ax,
+               rel_err=ex, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bound_ms=bound, bound_by=by, gflop=flops / 1e9)
+    rec.update(check_launches(f"tri_inv_lower {label}",
+                              lambda: tri_inv_lower(L),
+                              tri_inv_launches(Wp)))
+    print("kernel tri_inv_lower", json.dumps(rec), flush=True)
+    return rec
 
 
 def work_bound(flops: float, nbytes: float, peaks) -> tuple[float, str]:
@@ -412,6 +440,18 @@ def seq_kernel_phase(sym, peaks):
                   lambda: torch.linalg.solve_triangular(L.mT, B, upper=True,
                                                         left=False),
                   float(m) * w * w, 8.0 * (w * (w + 1) / 2 + 2 * m * w)))
+    # a small tail of the same path: the widest supernode with m <= 64
+    small = [s for s in range(len(ws)) if 1 <= ms[s] <= 64]
+    s_small = max(small, key=lambda s: (ws[s], ms[s]))
+    ws_, ms_ = int(ws[s_small]), int(ms[s_small])
+    Ls = torch.linalg.cholesky(sym_of(spd_lower(ws_))).contiguous()
+    Bs = randn(ms_, ws_)
+    cases.append(("trsm_rlt", f"small tail M={ms_} W={ws_}",
+                  lambda: trsm_rlt(Ls, Bs), lambda: trsm_rlt_ref(Ls, Bs),
+                  lambda: torch.linalg.solve_triangular(
+                      Ls.mT, Bs, upper=True, left=False),
+                  float(ms_) * ws_ * ws_,
+                  8.0 * (ws_ * (ws_ + 1) / 2 + 2 * ms_ * ws_)))
     T = 0.5 * randn(m, w)
     cases.append(("syrk_ln", f"tail M={m} K={w}", lambda: syrk_ln(T),
                   lambda: syrk_ln_ref(T), lambda: torch.tril(T @ T.mT),
@@ -480,8 +520,8 @@ def seq_kernel_phase(sym, peaks):
             _, Lp_, Wp_ = out[0].shape
             rec.update(check_launches(f"fused_factor_syrk {label}", fn,
                                       fused_launches(1, Lp_, Wp_)))
-        elif name == "gemm_nt":  # small calls: the wall time is the host's
-            rec.update(check_launches(f"gemm_nt {label}", fn, 1))
+        elif name in ("gemm_nt", "trsm_rlt"):  # one launch a call
+            rec.update(check_launches(f"{name} {label}", fn, 1))
         results.setdefault(name, []).append(rec)
         print(f"kernel {name}", json.dumps(rec), flush=True)
     torch.cuda.empty_cache()
@@ -561,9 +601,9 @@ def seq_expect(sym, thr: int, method: str, fused: bool, bt: bool = False):
     """What a sequential run must count: per-kernel launches and engine
     stats, from the supernodes with rows*w >= thr and the engine's protocol
     (potrf: one chol_tile per NB = 128 columns and tri_inv_lower, gemm_nt,
-    syrk_ln per step below the last; trsm_rlt with its tri_inv_lower per
-    tail; RL one syrk_tail, RLB one syrk_ln per block and one gemm_nt per
-    block pair)."""
+    syrk_ln per step below the last; one trsm_rlt per tail, which inverts
+    its diagonal blocks itself; RL one syrk_tail, RLB one syrk_ln per block
+    and one gemm_nt per block pair)."""
     from repro_torch.core.relind import supernode_blocks
     from repro_torch.kernels.potrf import NB
 
@@ -588,7 +628,6 @@ def seq_expect(sym, thr: int, method: str, fused: bool, bt: bool = False):
                 launches[k] += steps - 1
             if m:
                 launches["trsm_rlt"] += 1
-                launches["tri_inv_lower"] += 1
         if not m:
             continue
         if method == "rl":
@@ -1164,9 +1203,8 @@ def main() -> None:
                     kernel = entry_name(line)
                 elif "registers" in line or "spill" in line:
                     print(f"ptxas {name} {kernel}: {line.strip()}")
-    print("sass", json.dumps(sass_dmma(_build, ("gemm_nt",
-                                                "fused_factor_syrk"))),
-          flush=True)
+    print("sass", json.dumps(sass_dmma(_build, (
+        "gemm_nt", "fused_factor_syrk", "tri_inv", "trsm_rlt"))), flush=True)
 
     mats = {}
     for name in ("lap3d_40", "kkt_256"):
@@ -1253,7 +1291,7 @@ def main() -> None:
         "gemm_nt": ("gemm_nt.cu", "gemm.py:32"),
         "fused_factor_syrk_guarded": ("fused_factor_syrk.cu", "fused.py:251"),
     }
-    design = {  # the two redesigned on fp64 tensor cores, the first versions
+    design = {  # the four redesigned on fp64 tensor cores, the first versions
         "fused_factor_syrk": "redesigned: one panel launch per 64-column "
         "slab (blocked 8-wide factor and doubling inverse of the diagonal "
         "block in shared memory, A21 L11^-T on DMMA) + DMMA trailing "
@@ -1262,8 +1300,13 @@ def main() -> None:
         "cp.async 3-stage ring of 32-deep K chunks)",
         "fused_factor_syrk_guarded": "one-block column sweep per slab + "
         "the DMMA trailing update and SYRK",
-        "tri_inv_lower": "first version: scalar FMA",
-        "trsm_rlt": "first version: scalar FMA tile",
+        "tri_inv_lower": "redesigned: 64-wide diagonal blocks inverted in "
+        "shared memory (8x8 substitution + DMMA doubling), then recursive "
+        "doubling over block sizes, two DMMA tile launches a level (T = "
+        "L21 X11, X21 = -X22 T), 1 + 2 ceil(log2(Wp/64)) launches",
+        "trsm_rlt": "redesigned: one launch; 16-row blocks sweep the "
+        "64-wide block columns, each D_j inverted in shared memory (DMMA "
+        "doubling), T = B_j - X L_j^T and X_j = T D_j^-T on DMMA",
         "chol_tile": "first version: one-block column sweep",
         "syrk_ln": "first version: scalar FMA tile",
     }

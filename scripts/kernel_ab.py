@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Times the fused kernel and ``gemm_nt`` of one checkout of the repo on the
-card, so two versions can be compared in one run on one card:
+"""Times the fused kernel, ``gemm_nt``, ``tri_inv_lower`` and ``trsm_rlt`` of
+one checkout of the repo on the card, so two versions can be compared in
+one run on one card:
 
     python3 scripts/kernel_ab.py TREE      (TREE: a checkout's root)
 
@@ -17,10 +18,19 @@ prints one JSON line: CUDA-event mean milliseconds of
 * the guarded kernel on the largest group (thr = 0);
 * ``gemm_nt`` on that tail's largest RLB block pair and on one 64 x 64
   pair (row slices of the tail, leading dimension w);
+* ``tri_inv_lower`` on the three groups' factored diagonal blocks (the
+  lanes ``fused_factor_syrk`` returns, made contiguous) and on one 128-wide
+  block of the blocked ``potrf``;
+* ``trsm_rlt`` on the largest tail (M = 1200, W = 669) and on the small
+  tail ``chip_smoke.py`` checks (the widest supernode with m <= 64);
+* the blocked ``potrf`` on the widest supernode's diagonal block (W =
+  1890);
 
-then the device time and launches of each fused-kernel CUDA function in one
-warm ``lap3d_40`` factorization, from ``torch.profiler``.  The inputs come
-from a seeded generator on the card.
+then the device time and launches of each fused-kernel and
+``tri_inv_lower`` CUDA function (and of the memsets) in one warm
+``lap3d_40`` factorization and its first device solve, from
+``torch.profiler``.  The inputs come from
+a seeded generator on the card.
 """
 from __future__ import annotations
 
@@ -41,7 +51,14 @@ def main(tree: str) -> None:
         device_plan,
         symbolic_pipeline,
     )
-    from repro_torch.kernels import _build, fused_factor_syrk, gemm_nt
+    from repro_torch.kernels import (
+        _build,
+        fused_factor_syrk,
+        gemm_nt,
+        ops,
+        tri_inv_lower,
+        trsm_rlt,
+    )
     from repro_torch.sparse import make_suite_matrix
 
     _build.build()
@@ -98,6 +115,10 @@ def main(tree: str) -> None:
         reps = 3 if Lp * Wp >= 1 << 21 else 10
         out[f"fused {label} ({Bp}, {Lp}, {Wp})"] = ms(
             lambda: fused_factor_syrk(p, r, w), reps)
+        L = fused_factor_syrk(p, r, w)[0][:, :Wp, :].contiguous()
+        out[f"tri_inv_lower {label} ({Bp}, {Wp}, {Wp})"] = ms(
+            lambda: tri_inv_lower(L), reps)
+        del L
         if label == "largest":
             out[f"guarded {label} thr 0"] = ms(
                 lambda: fused_factor_syrk(p, r, w, guard=True, thr=0.0), 3)
@@ -115,22 +136,58 @@ def main(tree: str) -> None:
     for nr, nc in ((580, 620), (64, 64)):
         a, b = T[:nr], T[M - nc:]
         out[f"gemm_nt {nr}x{nc}x{W}"] = ms(lambda: gemm_nt(a, b), 50)
-    cholesky(A, sym=sym, Aperm=Aperm)
+    def spd(W):
+        G = randn(W, W)
+        return torch.linalg.cholesky(G @ G.T / W + 2 * torch.eye(
+            W, device=dev, dtype=torch.float64)).contiguous()
+
+    L = spd(128)[None]
+    out["tri_inv_lower potrf block (1, 128, 128)"] = ms(
+        lambda: tri_inv_lower(L), 50)
+    small = [x for x in range(len(wsn)) if 1 <= msn[x] <= 64]
+    s_small = max(small, key=lambda x: (wsn[x], msn[x]))
+    for label, s_ in (("largest tail", int(np.argmax(msn * wsn))),
+                      ("small tail", s_small)):
+        W, M = int(wsn[s_]), int(msn[s_])
+        L, B = spd(W), randn(M, W)
+        out[f"trsm_rlt {label} M={M} W={W}"] = ms(lambda: trsm_rlt(L, B),
+                                                  20)
+    W = int(wsn.max())
+    A_ = torch.tril(spd(W) @ spd(W).mT)
+    out[f"potrf W={W}"] = ms(lambda: ops.potrf(A_), 5)
+    del A_, L, B
+    # the diagonal blocks are inverted once per group, at the first solve
+    b = np.ones(A.shape[0])
+    cholesky(A, sym=sym, Aperm=Aperm).solve(b, backend="device")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        cholesky(A, sym=sym, Aperm=Aperm)
+        cholesky(A, sym=sym, Aperm=Aperm).solve(b, backend="device")
         torch.cuda.synchronize()
-    fused = {}
+    kernels = {  # the CUDA functions of each kernel, this PR's and before
+        "fused": ("mask_kernel", "diag_factor_kernel", "panel_trsm_kernel",
+                  "panel_kernel", "trailing_kernel", "syrk_kernel"),
+        "tri_inv_lower": ("diag_inv_kernel", "offdiag_kernel",
+                          "inv_diag_kernel", "level_t_kernel",
+                          "level_x_kernel"),
+    }
+    by = {k: {} for k in kernels}
+    memset = {"ms": 0.0, "launches": 0}
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
         name = ev.key.split("::")[-1].split("(")[0]
-        if dev_us > 0 and name in ("mask_kernel", "diag_factor_kernel",
-                                   "panel_trsm_kernel", "panel_kernel",
-                                   "trailing_kernel", "syrk_kernel"):
-            fused[name] = {"ms": dev_us / 1e3, "launches": ev.count}
-    out["lap3d_40 fused kernel by function"] = fused
-    out["lap3d_40 fused kernel ms"] = sum(v["ms"] for v in fused.values())
+        if dev_us <= 0:
+            continue
+        if "memset" in ev.key.lower():
+            memset["ms"] += dev_us / 1e3
+            memset["launches"] += ev.count
+        for k, names in kernels.items():
+            if name in names:
+                by[k][name] = {"ms": dev_us / 1e3, "launches": ev.count}
+    for k, fns in by.items():
+        out[f"lap3d_40 {k} kernel by function"] = fns
+        out[f"lap3d_40 {k} kernel ms"] = sum(v["ms"] for v in fns.values())
+    out["lap3d_40 memsets"] = memset
     print(json.dumps(out), flush=True)
 
 

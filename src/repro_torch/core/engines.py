@@ -389,7 +389,7 @@ class DeviceEngine:
         """Invert one group's stacked diagonal blocks (finalize time)."""
         self.stats["device_calls"] += 1
         Wp = P.shape[2]
-        return tri_inv_lower(P[:, :Wp, :].contiguous())
+        return tri_inv_lower(P[:, :Wp, :])
 
     # A level's groups are an antichain, so each level runs as one program
     # chaining its groups on y: per group one batched Dinv-GEMM for the

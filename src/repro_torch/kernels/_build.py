@@ -36,7 +36,8 @@ SIGNATURES = {
         "fused_factor_syrk_error": ([_I], ctypes.c_char_p),
     },
     "tri_inv": {
-        "tri_inv_lower_launch": ([_P, _P, _I, _I, _I, _P], _I),
+        "tri_inv_lower_launch": (
+            [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P], _I),
         "tri_inv_lower_error": ([_I], ctypes.c_char_p),
     },
     "gemm_nt": {
@@ -52,7 +53,7 @@ SIGNATURES = {
         "chol_tile_error": ([_I], ctypes.c_char_p),
     },
     "trsm_rlt": {
-        "trsm_rlt_launch": ([_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _P], _I),
+        "trsm_rlt_launch": ([_P, _I, _P, _I, _P, _I, _I, _I, _I, _P], _I),
         "trsm_rlt_error": ([_I], ctypes.c_char_p),
     },
 }

@@ -40,7 +40,9 @@
 //                         doubling from the 8 x 8
 //                         inverses, inv([A 0; C B]) = [A^-1 0;
 //                         -B^-1 C A^-1  B^-1], two block-wide products per
-//                         level (6 barriers).  The explicit inverse of the
+//                         level (6 barriers; tile.cuh's tri_inv64_doubling,
+//                         shared with tri_inv.cu and trsm_rlt.cu).  The
+//                         explicit inverse of the
 //                         64-wide diagonal block is what trsm_rlt.cu, the
 //                         reference and MAGMA do; its error grows with
 //                         cond(L11), which the card tests hold on a graded
@@ -115,10 +117,10 @@ constexpr int NB = DT;        // slab width
 constexpr int PNT = 128;      // threads of the panel kernel (4 warps)
 constexpr int SB = 8;         // sub-block width of the diagonal factor
 constexpr int NSB = NB / SB;  // sub-blocks per slab
-constexpr int PLD = NB + 4;   // stride of the panel kernel's rows (4 mod 16)
+constexpr int PLD = TLD;      // stride of the panel kernel's rows (4 mod 16)
 constexpr int DS = SB + 4;    // stride of an 8 x 8 inverse (4 mod 16)
-constexpr int PS = 32 + 4;    // stride of the doubling's products
-constexpr int PSZ = 32 * PS;  // doubles of those products (>= NSB SB DS)
+constexpr int PSZ = TPSZ;     // doubles of the doubling's products
+static_assert(PSZ >= NSB * SB * DS, "the 8 x 8 inverses share P");
 // L11, its inverse and a row tile (rows of PLD), the 8 x 8 inverses and
 // then the doubling's products: 113,664 bytes, so two blocks fit an SM
 constexpr int PANEL_SMEM = (3 * NB * PLD + PSZ) * (int)sizeof(double);
@@ -325,96 +327,14 @@ __global__ void __launch_bounds__(PNT)
     }
     __syncthreads();
   }
-  // L11^-1 by recursive doubling from the 8 x 8 inverses DJ: for each pair
-  // of h-wide diagonal blocks with inverses A^-1, B^-1 and the block C
-  // below A,  inv([A 0; C B]) = [A^-1 0; -B^-1 C A^-1  B^-1],  as the two
-  // products P = C A^-1 and -B^-1 P on DMMA, every pair of a level at once.
+  // L11^-1 by recursive doubling from the 8 x 8 inverses DJ, placed on
+  // Li's diagonal (tile.cuh: tri_inv64_doubling)
   for (int e = tid; e < NSB * SB * SB; e += PNT) {
     const int J = e / (SB * SB), r = (e / SB) % SB, c = e % SB;
     Li[(J * SB + r) * PLD + J * SB + c] = D[J * SB * DS + r * DS + c];
   }
   __syncthreads();  // D is free: P overwrites it below
-  {  // h = 8: a warp per pair (16-row fragments, the first 8 rows kept)
-    const int base = 16 * warp;
-    double a[4], bb[2], c[4] = {0.0, 0.0, 0.0, 0.0};
-    frag_a(a, L, PLD, base + 8, base);
-    frag_b(bb, Li, PLD, base, base);
-    dmma(c, a, bb);
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      P[(base / 2 + frag_row(0, e)) * PS + frag_col(0, e)] = c[e];
-    __syncwarp();
-    c[0] = c[1] = c[2] = c[3] = 0.0;
-    frag_a(a, Li, PLD, base + 8, base + 8);
-    frag_b(bb, P, PS, base / 2, 0);
-    dmma(c, a, bb);
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      Li[(base + 8 + frag_row(0, e)) * PLD + base + frag_col(0, e)] = -c[e];
-  }
-  __syncthreads();
-  {  // h = 16: warp = (pair, 8-column half)
-    const int base = 32 * (warp >> 1), q = warp & 1;
-    double a[4], bb[2], c[4] = {0.0, 0.0, 0.0, 0.0};
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      frag_a(a, L, PLD, base + 16, base + 8 * s);
-      frag_b(bb, Li, PLD, base + 8 * s, base + 8 * q);
-      dmma(c, a, bb);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      P[(base / 2 + frag_row(0, e)) * PS + frag_col(8 * q, e)] = c[e];
-    __syncthreads();
-    c[0] = c[1] = c[2] = c[3] = 0.0;
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      frag_a(a, Li, PLD, base + 16, base + 16 + 8 * s);
-      frag_b(bb, P, PS, base / 2 + 8 * s, 8 * q);
-      dmma(c, a, bb);
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      Li[(base + 16 + frag_row(0, e)) * PLD + base + frag_col(8 * q, e)] =
-          -c[e];
-  }
-  __syncthreads();
-  {  // h = 32: warp = (16-row tile, two 8-column tiles)
-    const int mi = warp >> 1, nj = 2 * (warp & 1);
-    double a[4], bb[2], c[2][4] = {};
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      frag_a(a, L, PLD, 32 + 16 * mi, 8 * s);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        frag_b(bb, Li, PLD, 8 * s, 8 * (nj + j));
-        dmma(c[j], a, bb);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        P[frag_row(16 * mi, e) * PS + frag_col(8 * (nj + j), e)] = c[j][e];
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < 2; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      frag_a(a, Li, PLD, 32 + 16 * mi, 32 + 8 * s);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        frag_b(bb, P, PS, 8 * s, 8 * (nj + j));
-        dmma(c[j], a, bb);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        Li[(32 + frag_row(16 * mi, e)) * PLD + frag_col(8 * (nj + j), e)] =
-            -c[j][e];
-  }
+  tri_inv64_doubling(L, Li, P);
   // X = A21 Li^T, tile by tile: acc[r][c] = sum_k X[r][k] Li[c][k]
   for (int t = t0; t < nrt; t += gridDim.x) {
     const int r0 = k1 + t * DT, r1 = min(r0 + DT, Lp);

@@ -1,7 +1,8 @@
-// The shared tile loops of the port's GEMM-shaped kernels, and the CHECK
-// macro of their launch functions.
+// The shared tile loops of the port's GEMM-shaped kernels, the inverse of a
+// 64 x 64 lower-triangular block in shared memory, and the CHECK macro of
+// their launch functions.
 //
-// gemm_nt_tile, the scalar loop of syrk_ln.cu and trsm_rlt.cu: one block of
+// gemm_nt_tile, the scalar loop of syrk_ln.cu: one block of
 // NT = 256 threads computes a TILE x TILE (64 x 64) fp64 product tile, each
 // thread holding a 4 x 4 accumulator; the two operands' row panels stream
 // through shared memory in K-chunks of TK = 8, stored transposed with a
@@ -10,8 +11,10 @@
 // edge is masked and nothing is padded.
 //
 // dmma_tile_nt, the fp64 tensor-core tile of gemm_nt.cu and of the fused
-// kernel's trailing update and SYRK (fused_factor_syrk.cu): the same
-// 64 x 64 C = A B^T tile on Hopper's fp64 tensor cores, through
+// kernel's trailing update and SYRK (fused_factor_syrk.cu), and its twin
+// dmma_tile_nn (C = A B with B row-major K x N, the products of
+// tri_inv.cu): the same 64 x 64 C = A B^T tile on Hopper's fp64 tensor
+// cores, through
 // mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 (DMMA; wgmma has no fp64
 // form).  Of the fp64 shapes, m16n8k8 and m16n8k16 reach the card's fp64
 // tensor rate; the older m8n8k4 issues at half of it on the H100
@@ -50,7 +53,14 @@
 // loads are conflict-free; the stride is also a multiple of 2 doubles, so
 // every 16-byte cp.async destination stays aligned.  Any stride = 4
 // (mod 16) does the same, and so does reading a row-major K x N operand by
-// columns (4 t + g); the fused panel kernel keeps 64-deep rows at 68.
+// columns (4 t + g): dmma_tile_nn stages B as 32 rows of 64 at stride 68,
+// and the 64 x 64 blocks of the panel kernel and the triangular inverse
+// keep rows of 68.
+//   The triangular inverse (tri_inv8_diag, tri_inv64_doubling): the eight
+// 8 x 8 diagonal blocks by forward substitution in registers, then the
+// doubling inv([A 0; C B]) = [A^-1 0; -B^-1 C A^-1  B^-1] on DMMA
+// fragments for h = 8, 16, 32, by a block of 4 warps (the fused panel
+// kernel, tri_inv.cu's diagonal blocks, trsm_rlt.cu's steps).
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,7 +81,7 @@ constexpr int LDT = TILE + 1;
 // acc[i][j] += sum_k A[r][k] * B[c][k] for r = ty + 16 i, c = tx + 16 j,
 // k in [0, K), with tx = threadIdx.x % 16 and ty = threadIdx.x / 16.  Rows
 // past arows / brows read as zero.  As and Bs hold TK * LDT doubles each.
-// No __restrict__: in trsm_rlt.cu, A is the X the kernel writes.  Every
+// No __restrict__: syrk_ln.cu passes one matrix as both operands.  Every
 // thread of the block must call it (it holds block barriers).
 __device__ __forceinline__ void gemm_nt_tile(const double* A, int lda,
                                              int arows, const double* B,
@@ -177,8 +187,10 @@ __device__ __forceinline__ int dmma_col(int j, int e) {
 }
 
 // acc += As Bs^T over k in [0, depth) (a multiple of 8) for the warp's
-// piece; As and Bs hold 64 rows at strides lda and ldb.
-template <int NW>
+// piece; As and Bs hold 64 rows at strides lda and ldb.  With BT false,
+// acc += As Bs instead: Bs holds depth rows of 64 columns (a row-major
+// K x N operand, read by columns).
+template <int NW, bool BT = true>
 __device__ __forceinline__ void dmma_smem(const double* As, int lda,
                                           const double* Bs, int ldb,
                                           int depth,
@@ -192,7 +204,12 @@ __device__ __forceinline__ void dmma_smem(const double* As, int lda,
 #pragma unroll
     for (int i = 0; i < 2; ++i) frag_a(af[i], As, lda, wr + 16 * i, k);
 #pragma unroll
-    for (int j = 0; j < NJ; ++j) frag_bt(bf[j], Bs, ldb, wc + 8 * j, k);
+    for (int j = 0; j < NJ; ++j) {
+      if constexpr (BT)
+        frag_bt(bf[j], Bs, ldb, wc + 8 * j, k);
+      else
+        frag_b(bf[j], Bs, ldb, k, wc + 8 * j);
+    }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -205,14 +222,14 @@ __device__ __forceinline__ bool dmma_vec(const double* G, int ld) {
   return (((uintptr_t)G & 15) == 0) && ((ld & 1) == 0);
 }
 
-// Stage rows [0, 64) x columns [k0, k0 + DEPTH) of the row-major G (ld) into
-// S (row stride LDS) with cp.async, by all NTH threads; the caller commits.
-// Each thread owns fixed slots (a column kk and every RSTEP-th row), so a
-// chunk costs a few unrolled copies per thread.  A slot at or past nrows or
-// K is zero-filled by the copy itself (src-size 0, or 8 for a 16-byte slot
-// that straddles K): no byte outside the operand is read, and the source
-// address given is then the operand's base.
-template <int DEPTH, int LDS, int NTH>
+// Stage rows [0, ROWS) x columns [k0, k0 + DEPTH) of the row-major G (ld)
+// into S (row stride LDS) with cp.async, by all NTH threads; the caller
+// commits.  Each thread owns fixed slots (a column kk and every RSTEP-th
+// row), so a chunk costs a few unrolled copies per thread.  A slot at or
+// past nrows or K is zero-filled by the copy itself (src-size 0, or 8 for a
+// 16-byte slot that straddles K): no byte outside the operand is read, and
+// the source address given is then the operand's base.
+template <int DEPTH, int LDS, int NTH, int ROWS = DT>
 __device__ __forceinline__ void dmma_stage(double* S, const double* G, int ld,
                                            int nrows, int K, int k0,
                                            bool vec) {
@@ -224,7 +241,7 @@ __device__ __forceinline__ void dmma_stage(double* S, const double* G, int ld,
     const int left = K - (k0 + kk);
     const int kb = left >= 2 ? 16 : (left == 1 ? 8 : 0);
 #pragma unroll
-    for (int i = 0; i < DT / RSTEP; ++i) {
+    for (int i = 0; i < ROWS / RSTEP; ++i) {
       const int r = r0 + i * RSTEP;
       const int n = r < nrows ? kb : 0;
       const double* src = n ? G + (size_t)r * ld + k0 + kk : G;
@@ -237,7 +254,7 @@ __device__ __forceinline__ void dmma_stage(double* S, const double* G, int ld,
     const int kk = tid % DEPTH, r0 = tid / DEPTH;
     const int kb = k0 + kk < K ? 8 : 0;
 #pragma unroll
-    for (int i = 0; i < DT / RSTEP; ++i) {
+    for (int i = 0; i < ROWS / RSTEP; ++i) {
       const int r = r0 + i * RSTEP;
       const int n = r < nrows ? kb : 0;
       const double* src = n ? G + (size_t)r * ld + k0 + kk : G;
@@ -256,25 +273,38 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// acc[i][j][e] += sum_{k < K} A[r][k] B[c][k] for the tile coordinates
-// (r, c) = (dmma_row<DNW>(i, e), dmma_col<DNW>(j, e)); rows past arows /
-// brows and k past K read as zero.  sm is the block's dynamic shared memory
-// (DMMA_SMEM_BYTES, 16-byte aligned).  All DNT threads of the block must
-// call it (it holds block barriers).  A ring of DNS stages: while the warps
-// multiply chunk c, chunks c + 1 and c + 2 are in flight, and one barrier
-// per chunk both publishes chunk c and frees the stage chunk c - 1 used.
-__device__ __forceinline__ void dmma_tile_nt(const double* A, int lda,
-                                             int arows, const double* B,
-                                             int ldb, int brows, int K,
-                                             double (&acc)[2][16 / DNW][4],
-                                             double* sm) {
+// The ring of dmma_tile_nt and dmma_tile_nn: acc[i][j][e] += the product
+// at the tile coordinates (r, c) = (dmma_row<DNW>(i, e), dmma_col<DNW>(j,
+// e)).  A is k-contiguous, rows past arows and k past K read as zero.  B
+// (BT): N x K, k-contiguous, rows past bn zero; B (!BT): K x N, row-major,
+// columns past bn zero, a chunk staged as DK rows of 64 at stride DLDN
+// (which fits a stage of DSTAGE doubles).  sm is the block's dynamic shared
+// memory (DMMA_SMEM_BYTES, 16-byte aligned).  All DNT threads of the block
+// must call it (it holds block barriers).  A ring of DNS stages: while the
+// warps multiply chunk c, chunks c + 1 and c + 2 are in flight, and one
+// barrier per chunk both publishes chunk c and frees the stage chunk c - 1
+// used.
+constexpr int DLDN = DT + 4;  // stride of a staged K x N chunk (= 4 mod 16)
+static_assert(DK * DLDN <= DSTAGE, "a K x N chunk must fit a stage");
+
+template <bool BT>
+__device__ __forceinline__ void dmma_tile(const double* A, int lda,
+                                          int arows, const double* B,
+                                          int ldb, int bn, int K,
+                                          double (&acc)[2][16 / DNW][4],
+                                          double* sm) {
   const bool va = dmma_vec(A, lda), vb = dmma_vec(B, ldb);
   const int nk = (K + DK - 1) / DK;
   auto stage = [&](int c) {
     const int s = c % DNS;
     dmma_stage<DK, DLD, DNT>(sm + s * DSTAGE, A, lda, arows, K, c * DK, va);
-    dmma_stage<DK, DLD, DNT>(sm + (DNS + s) * DSTAGE, B, ldb, brows, K,
-                             c * DK, vb);
+    if constexpr (BT)
+      dmma_stage<DK, DLD, DNT>(sm + (DNS + s) * DSTAGE, B, ldb, bn, K,
+                               c * DK, vb);
+    else
+      dmma_stage<DT, DLDN, DNT, DK>(sm + (DNS + s) * DSTAGE,
+                                    B + (size_t)c * DK * ldb, ldb,
+                                    K - c * DK, bn, 0, vb);
   };
 #pragma unroll
   for (int c = 0; c < DNS - 1; ++c) {
@@ -287,10 +317,160 @@ __device__ __forceinline__ void dmma_tile_nt(const double* A, int lda,
     if (c + DNS - 1 < nk) stage(c + DNS - 1);
     cp_async_commit();
     const int s = c % DNS;
-    dmma_smem<DNW>(sm + s * DSTAGE, DLD, sm + (DNS + s) * DSTAGE, DLD, DK,
-                   acc);
+    dmma_smem<DNW, BT>(sm + s * DSTAGE, DLD, sm + (DNS + s) * DSTAGE,
+                       BT ? DLD : DLDN, DK, acc);
   }
   __syncthreads();  // the caller may reuse sm
+}
+
+// acc += A B^T over k < K: A (arows x K), B (brows x K), both k-contiguous.
+__device__ __forceinline__ void dmma_tile_nt(const double* A, int lda,
+                                             int arows, const double* B,
+                                             int ldb, int brows, int K,
+                                             double (&acc)[2][16 / DNW][4],
+                                             double* sm) {
+  dmma_tile<true>(A, lda, arows, B, ldb, brows, K, acc, sm);
+}
+
+// acc += A B over k < K: A (arows x K) k-contiguous, B (K x bcols)
+// row-major, as the triangular inverse's products need.
+__device__ __forceinline__ void dmma_tile_nn(const double* A, int lda,
+                                             int arows, const double* B,
+                                             int ldb, int bcols, int K,
+                                             double (&acc)[2][16 / DNW][4],
+                                             double* sm) {
+  dmma_tile<false>(A, lda, arows, B, ldb, bcols, K, acc, sm);
+}
+
+
+// ---------------------------------------------------------------------------
+// Inverse of a 64 x 64 lower-triangular block in shared memory (the fused
+// panel kernel, tri_inv.cu's diagonal blocks, trsm_rlt.cu's steps), by a
+// block of exactly 4 warps.  Blocks are held at row stride TLD; the
+// doubling's products need TPSZ doubles of scratch.
+// ---------------------------------------------------------------------------
+constexpr int TLD = DT + 4;      // row stride of a 64 x 64 block (4 mod 16)
+constexpr int TPS = 32 + 4;      // stride of the doubling's products
+constexpr int TPSZ = 32 * TPS;   // doubles of those products
+
+// Li's eight 8 x 8 diagonal blocks = the inverses of L's, by warps 0 and 1
+// (four blocks a warp, lane i of each 8-lane group holding row i): column
+// i by forward substitution, x[r] = (delta_ri - sum_{p<r} L[r][p] x[p]) /
+// L[r][r], with L's rows read from their lanes.  Reads only the lower
+// triangle of each block; writes its zeros above the diagonal too.
+__device__ __forceinline__ void tri_inv8_diag(const double* L, double* Li) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (warp >= 2) return;
+  const int j0 = 8 * (4 * warp + (lane >> 3)), i = lane & 7;
+  double a[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) a[p] = p < i ? L[(j0 + i) * TLD + j0 + p] : 0.0;
+  const double rd = 1.0 / L[(j0 + i) * TLD + j0 + i];
+  double x[8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    double s = r == i ? 1.0 : 0.0;
+#pragma unroll
+    for (int p = 0; p < r; ++p)
+      s -= __shfl_sync(0xffffffffu, a[p], r, 8) * x[p];
+    const double rr = __shfl_sync(0xffffffffu, rd, r, 8);
+    x[r] = r < i ? 0.0 : s * rr;
+  }
+#pragma unroll
+  for (int p = 0; p < 8; ++p) Li[(j0 + p) * TLD + j0 + i] = x[p];
+}
+
+// Li = L^-1 by recursive doubling from the 8 x 8 inverses already in Li's
+// diagonal blocks (Li zero above them): for each pair of h-wide diagonal
+// blocks with inverses A^-1, B^-1 and the block C below A,
+//     inv([A 0; C B]) = [A^-1 0; -B^-1 C A^-1  B^-1],
+// as the two products P = C A^-1 and -B^-1 P on DMMA, every pair of a level
+// at once (h = 8, 16, 32; 5 barriers).  Reads only L's blocks below the
+// diagonal.  All 4 warps call it; the caller syncs before reading Li.
+__device__ __forceinline__ void tri_inv64_doubling(const double* L,
+                                                   double* Li, double* P) {
+  const int warp = threadIdx.x >> 5;
+  {  // h = 8: a warp per pair (16-row fragments, the first 8 rows kept)
+    const int base = 16 * warp;
+    double a[4], bb[2], c[4] = {0.0, 0.0, 0.0, 0.0};
+    frag_a(a, L, TLD, base + 8, base);
+    frag_b(bb, Li, TLD, base, base);
+    dmma(c, a, bb);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      P[(base / 2 + frag_row(0, e)) * TPS + frag_col(0, e)] = c[e];
+    __syncwarp();
+    c[0] = c[1] = c[2] = c[3] = 0.0;
+    frag_a(a, Li, TLD, base + 8, base + 8);
+    frag_b(bb, P, TPS, base / 2, 0);
+    dmma(c, a, bb);
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      Li[(base + 8 + frag_row(0, e)) * TLD + base + frag_col(0, e)] = -c[e];
+  }
+  __syncthreads();
+  {  // h = 16: warp = (pair, 8-column half)
+    const int base = 32 * (warp >> 1), q = warp & 1;
+    double a[4], bb[2], c[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      frag_a(a, L, TLD, base + 16, base + 8 * s);
+      frag_b(bb, Li, TLD, base + 8 * s, base + 8 * q);
+      dmma(c, a, bb);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      P[(base / 2 + frag_row(0, e)) * TPS + frag_col(8 * q, e)] = c[e];
+    __syncthreads();
+    c[0] = c[1] = c[2] = c[3] = 0.0;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      frag_a(a, Li, TLD, base + 16, base + 16 + 8 * s);
+      frag_b(bb, P, TPS, base / 2 + 8 * s, 8 * q);
+      dmma(c, a, bb);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      Li[(base + 16 + frag_row(0, e)) * TLD + base + frag_col(8 * q, e)] =
+          -c[e];
+  }
+  __syncthreads();
+  {  // h = 32: warp = (16-row tile, two 8-column tiles)
+    const int mi = warp >> 1, nj = 2 * (warp & 1);
+    double a[4], bb[2], c[2][4] = {};
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      frag_a(a, L, TLD, 32 + 16 * mi, 8 * s);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        frag_b(bb, Li, TLD, 8 * s, 8 * (nj + j));
+        dmma(c[j], a, bb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        P[frag_row(16 * mi, e) * TPS + frag_col(8 * (nj + j), e)] = c[j][e];
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < 2; ++j) c[j][0] = c[j][1] = c[j][2] = c[j][3] = 0.0;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      frag_a(a, Li, TLD, 32 + 16 * mi, 32 + 8 * s);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        frag_b(bb, P, TPS, 8 * s, 8 * (nj + j));
+        dmma(c[j], a, bb);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        Li[(32 + frag_row(16 * mi, e)) * TLD + frag_col(8 * (nj + j), e)] =
+            -c[j][e];
+  }
 }
 
 }  // namespace

@@ -8,10 +8,10 @@ Both port the TPU kernel ``src/repro/kernels/trsm.py::trsm_rlt``:
                    ``L^{-1}``, so the port computes that batched inverse
                    directly (``csrc/tri_inv.cu``);
     trsm_rlt       for any ``B``, as ``ops.factor_panel`` applies it to a
-                   supernode's rectangular part: the 64 x 64 diagonal blocks
-                   of ``L`` are inverted by ``tri_inv_lower`` (the reference
-                   uses an XLA triangular solve there), then one launch of
-                   ``csrc/trsm_rlt.cu`` does the block-column steps.
+                   supernode's rectangular part: one launch of
+                   ``csrc/trsm_rlt.cu`` inverts each 64 x 64 diagonal block
+                   of ``L`` in shared memory (the reference uses an XLA
+                   triangular solve there) and does the block-column steps.
 
 On a CUDA tensor each launches its kernel; on a CPU tensor each runs its
 plain version (``tri_inv_lower_ref``, ``trsm_rlt_ref``).
@@ -29,9 +29,33 @@ def tri_inv_lower_ref(L: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
 
 
+#: block width of the kernels' diagonal inverses (csrc/tile.cuh: DT)
+TRSM_NB = 64
+
+
+def tri_inv_levels(Wp: int) -> list[tuple[int, int]]:
+    """``(h, npairs)`` of each doubling level of ``csrc/tri_inv.cu`` for a
+    Wp-wide lane: for g = 1, 2, 4, ... blocks below ``ceil(Wp / 64)``, the
+    pairs of h = 64 g wide halves (an odd last group carries up)."""
+    nblk = -(-Wp // TRSM_NB)
+    out, g = [], 1
+    while g < nblk:
+        out.append((TRSM_NB * g, -(-(nblk - g) // (2 * g))))
+        g *= 2
+    return out
+
+
+def tri_inv_launches(Wp: int) -> int:
+    """Kernel launches of one ``tri_inv_lower`` call on Wp-wide lanes: the
+    diagonal-block launch and two per doubling level."""
+    return 1 + 2 * len(tri_inv_levels(Wp))
+
+
 def tri_inv_lower(L: torch.Tensor) -> torch.Tensor:
     """Inverse of each lower-triangular (Wp, Wp) lane of a (Bp, Wp, Wp)
-    float64 stack (upper triangle ignored on input, zero on output).
+    float64 stack (upper triangle ignored on input, zero on output).  The
+    lanes need contiguous rows only: a view such as ``P[:, :Wp, :]`` of a
+    (Bp, Lp, Wp) group passes without a copy.  Returns a contiguous stack.
     ``tri_inv_lower.launches`` counts the calls that launched the CUDA
     kernel."""
     if L.device.type == "cpu":
@@ -40,14 +64,20 @@ def tri_inv_lower(L: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"unsupported device {L.device}")
     if L.dim() != 3 or L.dtype != torch.float64 or L.shape[1] != L.shape[2]:
         raise ValueError("L must be a (Bp, Wp, Wp) float64 tensor")
-    if not L.is_contiguous():
-        raise ValueError("L must be contiguous")
     Bp, Wp, _ = L.shape
-    X = torch.empty_like(L)
+    if Wp > 1 and not (L.stride(2) == 1 and Wp <= L.stride(1) < 2 ** 31
+                       and 0 <= L.stride(0) < 2 ** 31):
+        raise ValueError(f"L must have contiguous rows, got strides "
+                         f"{L.stride()}")
+    X = L.new_empty((Bp, Wp, Wp))
+    if Bp == 0 or Wp == 0:
+        return X
+    ts = max((h * h * n for h, n in tri_inv_levels(Wp)), default=0)
+    T = L.new_empty((max(Bp * ts, 1),))
     lib = _build.load("tri_inv")
     rc = lib.tri_inv_lower_launch(
-        L.data_ptr(), X.data_ptr(), Bp, Wp, L.device.index or 0,
-        _build.stream(L.device))
+        L.data_ptr(), max(L.stride(1), Wp), L.stride(0), X.data_ptr(),
+        T.data_ptr(), ts, Bp, Wp, L.device.index, _build.stream(L.device))
     _build.check(lib, "tri_inv_lower_error", rc, "tri_inv_lower")
     tri_inv_lower.launches += 1
     return X
@@ -56,40 +86,18 @@ def tri_inv_lower(L: torch.Tensor) -> torch.Tensor:
 tri_inv_lower.launches = 0
 
 
-#: block width of ``trsm_rlt``'s diagonal inverses (csrc/trsm_rlt.cu: NB)
-TRSM_NB = 64
-
-
 def trsm_rlt_ref(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version: ``X`` with ``X L^T = B`` from
     ``solve_triangular`` (which reads only the lower triangle of ``L``)."""
     return torch.linalg.solve_triangular(L, B.mT, upper=False).mT
 
 
-def _diag_blocks(L: torch.Tensor, nb: int) -> torch.Tensor:
-    """The (ceil(W/nb), nb, nb) stack of ``L``'s diagonal blocks, the last
-    one's pad extended by the identity (upper triangles are left as they
-    are: ``tri_inv_lower`` ignores them)."""
-    W = L.shape[0]
-    nfull, rem = divmod(W, nb)
-    tiles = L.new_zeros((nfull + (rem > 0), nb, nb))
-    if nfull:
-        ldl = L.stride(0)
-        tiles[:nfull] = L.as_strided((nfull, nb, nb), (nb * ldl + nb, ldl, 1))
-    if rem:
-        j0 = nfull * nb
-        tiles[nfull, :rem, :rem] = L[j0:, j0:]
-        idx = torch.arange(rem, nb, device=L.device)
-        tiles[nfull, idx, idx] = 1.0
-    return tiles
-
-
 def trsm_rlt(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve ``X L^T = B`` for ``X``: ``L`` (W, W) float64 lower triangular
-    (its strict upper triangle is never read), ``B`` (M, W) float64, both
-    with contiguous rows.  Returns a contiguous (M, W) tensor.
-    ``trsm_rlt.launches`` counts the calls that launched the CUDA kernel
-    (the diagonal inverses count on ``tri_inv_lower``)."""
+    (its strict upper triangle is never used), ``B`` (M, W) float64, both
+    with contiguous rows.  Returns a contiguous (M, W) tensor.  One kernel
+    launch, which also inverts the 64-wide diagonal blocks;
+    ``trsm_rlt.launches`` counts the calls that launched it."""
     if L.device.type == "cpu":
         return trsm_rlt_ref(L, B)
     if L.device.type != "cuda":
@@ -104,12 +112,10 @@ def trsm_rlt(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     X = B.new_empty((M, W))
     if M == 0 or W == 0:
         return X
-    invd = tri_inv_lower(_diag_blocks(L, TRSM_NB))
     lib = _build.load("trsm_rlt")
     rc = lib.trsm_rlt_launch(
         B.data_ptr(), _build.ld(B), L.data_ptr(), _build.ld(L),
-        invd.data_ptr(), X.data_ptr(), W, M, W, L.device.index or 0,
-        _build.stream(L.device))
+        X.data_ptr(), W, M, W, L.device.index, _build.stream(L.device))
     _build.check(lib, "trsm_rlt_error", rc, "trsm_rlt")
     trsm_rlt.launches += 1
     return X

@@ -127,18 +127,103 @@ def test_fused_kernel_ill_conditioned_diagonal(card):
     assert _rel(fp, fr) <= 1e-10 and _rel(u, ur) <= 1e-10
 
 
-@pytest.mark.parametrize("Bp,Wp", [(3, 8), (2, 40), (2, 64), (2, 100),
-                                   (1, 300)])
-def test_tri_inv_kernel_matches_plain(card, Bp, Wp):
-    rng = np.random.default_rng(Wp)
+def _lower_lanes(Bp, Wp, seed):
+    rng = np.random.default_rng(seed)
     L = np.tril(rng.standard_normal((Bp, Wp, Wp)) / np.sqrt(Wp))
     idx = np.arange(Wp)
     L[:, idx, idx] = 1.0 + np.abs(rng.standard_normal((Bp, Wp)))
-    L = torch.from_numpy(L).to(card)
+    return L
+
+
+@pytest.mark.parametrize("Bp,Wp", [
+    (3, 8), (2, 40), (2, 64), (2, 100), (1, 300),
+    # every doubling level, odd carries (257, 669), partial last blocks
+    (1, 1), (1, 63), (1, 64), (1, 65), (1, 128), (1, 129), (1, 192),
+    (1, 256), (1, 257), (1, 669), (1, 1024), (1, 2048),
+    # many narrow lanes
+    (64, 8), (64, 40), (33, 64), (64, 100)])
+def test_tri_inv_kernel_matches_plain(card, Bp, Wp):
+    L = _lower_lanes(Bp, Wp, Wp)
+    # garbage above the diagonal is never used
+    Lg = torch.from_numpy(L + np.triu(np.random.default_rng(1).standard_normal(
+        (Wp, Wp)), 1)).to(card)
+    before = tri_inv_lower.launches
+    X = tri_inv_lower(Lg)
+    torch.cuda.synchronize()
+    assert tri_inv_lower.launches == before + 1
+    assert _rel(X, tri_inv_lower_ref(torch.from_numpy(L).to(card))) <= 1e-10
+    assert not torch.triu(X, 1).any()
+
+
+def test_tri_inv_kernel_lane_view(card):
+    # engines.invert_diag passes P[:, :Wp, :] of a (Bp, Lp, Wp) group
+    Bp, Lp, Wp = 3, 300, 130
+    P = torch.from_numpy(np.concatenate(
+        [_lower_lanes(Bp, Wp, 3), np.ones((Bp, Lp - Wp, Wp))], 1)).to(card)
+    X = tri_inv_lower(P[:, :Wp, :])
+    torch.cuda.synchronize()
+    assert _rel(X, tri_inv_lower_ref(P[:, :Wp, :].contiguous())) <= 1e-10
+
+
+def test_tri_inv_kernel_ill_conditioned_lane(card):
+    # the factor of a graded matrix, diag(A) = logspace(0, -6), as in
+    # test_fused_kernel_ill_conditioned_diagonal: the explicit inverses of
+    # the 64-wide diagonal blocks and the products must still agree with
+    # the plain version's triangular solve
+    Wp = 300
+    rng = np.random.default_rng(11)
+    G = rng.standard_normal((Wp, Wp))
+    M = G @ G.T / Wp + 2 * np.eye(Wp)
+    d = 1 / np.sqrt(np.diag(M))
+    s = np.sqrt(np.logspace(0, -6, Wp))
+    L = np.linalg.cholesky((s * d)[:, None] * M * (s * d)[None, :])
+    Lc = torch.from_numpy(np.stack([L, _lower_lanes(1, Wp, 2)[0]])).to(card)
+    X = tri_inv_lower(Lc)
+    torch.cuda.synchronize()
+    assert _rel(X, tri_inv_lower_ref(Lc)) <= 1e-10
+
+
+def test_tri_inv_kernel_nan_stays_in_its_lane(card):
+    Bp, Wp = 4, 200
+    L = _lower_lanes(Bp, Wp, 4)
+    L[1, 150, 20] = np.nan
+    Lc = torch.from_numpy(L).to(card)
+    X = tri_inv_lower(Lc)
+    torch.cuda.synchronize()
+    assert torch.isnan(X[1]).any()
+    keep = [0, 2, 3]
+    assert torch.isfinite(X[keep]).all()
+    assert _rel(X[keep], tri_inv_lower_ref(Lc[keep])) <= 1e-10
+
+
+def test_tri_inv_kernel_past_the_grid_y_limit(card):
+    # cholesky_many stacks M * Bp lanes into one call: more lanes than a
+    # grid's y dimension takes (65,535) must launch
+    Bp, Wp = 70_000, 8
+    L = torch.from_numpy(_lower_lanes(Bp, Wp, 70)).to(card)
     X = tri_inv_lower(L)
     torch.cuda.synchronize()
     assert _rel(X, tri_inv_lower_ref(L)) <= 1e-10
-    assert not torch.triu(X, 1).any()
+
+
+@pytest.mark.parametrize("M", [1, 15, 16, 17, 33, 1200])
+@pytest.mark.parametrize("W", [1, 63, 65, 130, 669])
+def test_trsm_rlt_odd_ld_and_offsets(card, M, W):
+    # B and L as slices at odd leading dimensions and odd row and column
+    # offsets (8-byte copies), garbage above L's diagonal
+    S = torch.tril(_spd_garbage(W, W, card))
+    L = torch.linalg.cholesky(S + torch.tril(S, -1).mT)
+    bigL = _randn((W + 3, W + 4), W, card)        # ld W + 4, offset (1, 3)
+    bigL[1:W + 1, 3:W + 3] = L + torch.triu(_randn((W, W), 8, card), 1)
+    Lv = bigL[1:W + 1, 3:W + 3]
+    bigB = _randn((M + 2, W + 5), M + W, card)    # ld W + 5, offset (1, 1)
+    Bv = bigB[1:M + 1, 1:W + 1]
+    before = (trsm_rlt.launches, tri_inv_lower.launches)
+    X = trsm_rlt(Lv, Bv)
+    torch.cuda.synchronize()
+    assert (trsm_rlt.launches, tri_inv_lower.launches) == (before[0] + 1,
+                                                           before[1])
+    assert _rel(X, trsm_rlt_ref(L, Bv)) <= 1e-10
 
 
 def test_wrappers_check_their_arguments(card):
@@ -265,8 +350,9 @@ def test_trsm_rlt_kernel_matches_plain(card, m, w):
     before = (trsm_rlt.launches, tri_inv_lower.launches)
     X = trsm_rlt(Lg, B)
     torch.cuda.synchronize()
+    # one launch, which inverts the diagonal blocks itself
     assert (trsm_rlt.launches, tri_inv_lower.launches) == (before[0] + 1,
-                                                           before[1] + 1)
+                                                           before[1])
     assert _rel(X, trsm_rlt_ref(L, B)) <= 1e-10
     C = _randn((w, 9), 3, card)
     assert _rel(ops.trsm_lln(Lg, C),
