@@ -13,14 +13,17 @@ card:
    plain version and a library yardstick: ``fused_factor_syrk`` and
    ``tri_inv_lower`` on group buffers of ``lap3d_40``'s fused schedule (the
    largest group, a tail-heavy group, a group with pad lanes and garbage pad
-   cells) and ``tri_inv_lower`` on one 128-wide potrf block; ``potrf``
-   (with ``chol_tile``), ``trsm_rlt``, ``syrk_ln``, ``gemm_nt`` and the
-   one-panel ``fused_factor_syrk`` at the shapes the sequential path gives
-   them on ``lap3d_40`` (its widest supernode, its largest tail and one
-   small tail, the largest tail's largest RLB block pair and one small
-   64 x 64 pair); the kernel launches of every fused, ``tri_inv_lower``,
-   ``trsm_rlt`` and ``gemm_nt`` call checked, counted by
-   ``torch.profiler``, against the formula of its launch loop;
+   cells) and ``tri_inv_lower`` on one 128-wide block (potrf's step
+   width); ``potrf`` (with ``chol_tile``), ``chol_tile`` alone at n = 128,
+   65, 33 and 8 (its 128, 64 and one-warp variants; n = 65 stops the 128
+   variant after 8 of its 15 steps), ``trsm_rlt``,
+   ``syrk_ln`` (and its subtract form at potrf's first step), ``gemm_nt``
+   and the one-panel ``fused_factor_syrk`` at the shapes the sequential
+   path gives them on ``lap3d_40`` (its widest supernode, its largest tail
+   and one small tail, one 64-row RLB block, the largest tail's largest
+   RLB block pair and one small 64 x 64 pair); the kernel launches of
+   every call checked, counted by ``torch.profiler``, against the formula
+   of its launch loop;
 4. drives the levels main path — ``cholesky(A)`` then
    ``F.solve(b, backend="device")`` with 1 and 64 right-hand sides — on
    ``lap3d_40`` and ``kkt_256``, and checks residuals, dispatch and transfer
@@ -243,7 +246,7 @@ def check_launches(what: str, fn, want: int) -> dict:
 
 def kernel_phase(plan, peaks):
     """The fused kernel and tri_inv_lower against their plain versions on
-    three groups of lap3d_40, and tri_inv_lower on one potrf block."""
+    three groups of lap3d_40, and tri_inv_lower on one 128-wide block."""
     import torch
 
     from repro_torch.kernels.fused import (
@@ -309,7 +312,7 @@ def kernel_phase(plan, peaks):
             label, fp[:, :Wp, :], g.ws_arr[:g.B], reps, peaks))
         del p, fp, u, fr, ur, a, D, S, B
         torch.cuda.empty_cache()
-    # one diagonal block of the blocked potrf (NB = 128 columns a step)
+    # one 128-wide block, the width of a blocked potrf step
     G = torch.randn((NB, NB), generator=gen, device="cuda",
                     dtype=torch.float64)
     Lb = torch.linalg.cholesky(G @ G.T / NB + 2.0 * torch.eye(
@@ -388,9 +391,12 @@ def seq_kernel_phase(sym, peaks):
         potrf_ref,
         syrk_ln,
         syrk_ln_ref,
+        syrk_ln_sub,
+        syrk_ln_sub_ref,
         trsm_rlt,
         trsm_rlt_ref,
     )
+    from repro_torch.kernels.potrf import NB
 
     ws = np.diff(sym.super_ptr)
     ms = np.array([r.shape[0] for r in sym.rows]) - ws
@@ -426,13 +432,14 @@ def seq_kernel_phase(sym, peaks):
                       lambda A=A: potrf_ref(A),
                       lambda S=S: torch.linalg.cholesky(S), W ** 3 / 3,
                       8.0 * (W * (W + 1) / 2 + W * W)))
-    n = 128
-    A = spd_lower(n)
-    S = sym_of(A)
-    cases.append(("chol_tile", f"potrf tile n={n}",
-                  lambda A=A: chol_tile(A), lambda A=A: chol_tile_ref(A),
-                  lambda S=S: torch.linalg.cholesky(S),
-                  n ** 3 / 3, 8.0 * (n * (n + 1) / 2 + n * n)))
+    for n in (128, 65, 33, 8):  # potrf's tile first: the kernels line's
+        A = spd_lower(n)
+        S = sym_of(A)
+        cases.append(("chol_tile", f"potrf tile n={n}" if n == 128
+                      else f"tile n={n}",
+                      lambda A=A: chol_tile(A), lambda A=A: chol_tile_ref(A),
+                      lambda S=S: torch.linalg.cholesky(S),
+                      n ** 3 / 3, 8.0 * (n * (n + 1) / 2 + n * n)))
     L = torch.linalg.cholesky(sym_of(spd_lower(w))).contiguous()
     B = randn(m, w)
     cases.append(("trsm_rlt", f"tail M={m} W={w}", lambda: trsm_rlt(L, B),
@@ -456,6 +463,23 @@ def seq_kernel_phase(sym, peaks):
     cases.append(("syrk_ln", f"tail M={m} K={w}", lambda: syrk_ln(T),
                   lambda: syrk_ln_ref(T), lambda: torch.tril(T @ T.mT),
                   float(m) * m * w, 8.0 * (m * w + m * m)))
+    Tb = T[:64]  # one RLB diagonal block update: a 64-row block of the tail
+    cases.append(("syrk_ln", f"RLB block M=64 K={w}", lambda: syrk_ln(Tb),
+                  lambda: syrk_ln_ref(Tb), lambda: torch.tril(Tb @ Tb.mT),
+                  64.0 * 64 * w, 8.0 * (64 * w + 64 * 64)))
+    # the subtract form at potrf's first step on the widest supernode: the
+    # trailing matrix (a zero upper triangle, as in potrf's buffer) less
+    # X X^T, in place; every timed call subtracts again
+    Wd = int(ws[s_wide])
+    Ms = Wd - NB
+    X = 0.1 * randn(Ms, NB)
+    C0 = spd_lower(Ms)
+    C1, C2, C3 = C0.clone(), C0.clone(), C0.clone()
+    cases.append(("syrk_ln", f"potrf step sub M={Ms} K={NB}",
+                  lambda: syrk_ln_sub(C1, X), lambda: syrk_ln_sub_ref(C2, X),
+                  lambda: C3.sub_(torch.tril(X @ X.mT)),
+                  float(Ms) * Ms * NB,
+                  8.0 * (Ms * NB + Ms * (Ms + 1))))
     Ra, Rb = T[:nr], T[m - nc:]
     cases.append(("gemm_nt", f"RLB pair M={nr} N={nc} K={w}",
                   lambda: gemm_nt(Ra, Rb), lambda: gemm_nt_ref(Ra, Rb),
@@ -520,7 +544,10 @@ def seq_kernel_phase(sym, peaks):
             _, Lp_, Wp_ = out[0].shape
             rec.update(check_launches(f"fused_factor_syrk {label}", fn,
                                       fused_launches(1, Lp_, Wp_)))
-        elif name in ("gemm_nt", "trsm_rlt"):  # one launch a call
+        elif name == "potrf":  # chol_tile a step, trsm_rlt + syrk_ln below
+            steps = -(-out.shape[0] // NB)
+            rec.update(check_launches(f"potrf {label}", fn, 3 * steps - 2))
+        else:  # one launch a call
             rec.update(check_launches(f"{name} {label}", fn, 1))
         results.setdefault(name, []).append(rec)
         print(f"kernel {name}", json.dumps(rec), flush=True)
@@ -600,10 +627,10 @@ def main_path(name: str, sym, Aperm, A, launches_of):
 def seq_expect(sym, thr: int, method: str, fused: bool, bt: bool = False):
     """What a sequential run must count: per-kernel launches and engine
     stats, from the supernodes with rows*w >= thr and the engine's protocol
-    (potrf: one chol_tile per NB = 128 columns and tri_inv_lower, gemm_nt,
-    syrk_ln per step below the last; one trsm_rlt per tail, which inverts
-    its diagonal blocks itself; RL one syrk_tail, RLB one syrk_ln per block
-    and one gemm_nt per block pair)."""
+    (potrf: one chol_tile per NB = 128 columns and one trsm_rlt and one
+    subtracting syrk_ln per step below the last; one trsm_rlt per tail,
+    which inverts its diagonal blocks itself; RL one syrk_tail, RLB one
+    syrk_ln per block and one gemm_nt per block pair)."""
     from repro_torch.core.relind import supernode_blocks
     from repro_torch.kernels.potrf import NB
 
@@ -624,7 +651,7 @@ def seq_expect(sym, thr: int, method: str, fused: bool, bt: bool = False):
         else:
             steps = -(-w // NB)
             launches["chol_tile"] += steps
-            for k in ("tri_inv_lower", "gemm_nt", "syrk_ln"):
+            for k in ("trsm_rlt", "syrk_ln"):
                 launches[k] += steps - 1
             if m:
                 launches["trsm_rlt"] += 1
@@ -1204,7 +1231,8 @@ def main() -> None:
                 elif "registers" in line or "spill" in line:
                     print(f"ptxas {name} {kernel}: {line.strip()}")
     print("sass", json.dumps(sass_dmma(_build, (
-        "gemm_nt", "fused_factor_syrk", "tri_inv", "trsm_rlt"))), flush=True)
+        "gemm_nt", "fused_factor_syrk", "tri_inv", "trsm_rlt", "chol_tile",
+        "syrk_ln"))), flush=True)
 
     mats = {}
     for name in ("lap3d_40", "kkt_256"):
@@ -1291,7 +1319,7 @@ def main() -> None:
         "gemm_nt": ("gemm_nt.cu", "gemm.py:32"),
         "fused_factor_syrk_guarded": ("fused_factor_syrk.cu", "fused.py:251"),
     }
-    design = {  # the four redesigned on fp64 tensor cores, the first versions
+    design = {  # every kernel but the guarded sweep on fp64 tensor cores
         "fused_factor_syrk": "redesigned: one panel launch per 64-column "
         "slab (blocked 8-wide factor and doubling inverse of the diagonal "
         "block in shared memory, A21 L11^-T on DMMA) + DMMA trailing "
@@ -1307,8 +1335,13 @@ def main() -> None:
         "trsm_rlt": "redesigned: one launch; 16-row blocks sweep the "
         "64-wide block columns, each D_j inverted in shared memory (DMMA "
         "doubling), T = B_j - X L_j^T and X_j = T D_j^-T on DMMA",
-        "chol_tile": "first version: one-block column sweep",
-        "syrk_ln": "first version: scalar FMA tile",
+        "chol_tile": "redesigned: one block, the tile padded to 8/16/32/"
+        "64/128 in shared memory, blocked 8-wide right-looking factor (a "
+        "warp's rsqrt 8x8 factor and inverse with look-ahead, rows below "
+        "and trailing update as DMMA fragments), ceil(n/8)-1 steps",
+        "syrk_ln": "redesigned: triangular grid of 64x64 DMMA tiles "
+        "(dmma_tile_nt), each lower tile zeroing its mirror; subtract form "
+        "in place for potrf's trailing update",
     }
     kernels = []
     for name in KERNEL_NAMES:

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Times the fused kernel, ``gemm_nt``, ``tri_inv_lower`` and ``trsm_rlt`` of
-one checkout of the repo on the card, so two versions can be compared in
-one run on one card:
+"""Times the fused kernel, ``gemm_nt``, ``tri_inv_lower``, ``trsm_rlt``,
+``chol_tile``, ``syrk_ln`` and the blocked ``potrf`` of one checkout of the
+repo on the card, so two versions can be compared in one run on one
+card:
 
     python3 scripts/kernel_ab.py TREE      (TREE: a checkout's root)
 
@@ -25,17 +26,23 @@ prints one JSON line: CUDA-event mean milliseconds of
   tail ``chip_smoke.py`` checks (the widest supernode with m <= 64);
 * the blocked ``potrf`` on the widest supernode's diagonal block (W =
   1890);
+* ``chol_tile`` at n = 128, and over the widths the GPU-only unfused RL
+  run of ``lap3d_40`` (``chip_smoke.py`` phase (a)) gives it: one tile per
+  128 columns of each supernode, all of them back to back, as one time;
+* ``syrk_ln`` on the largest tail (M = 1200, K = 669) and on one 64-row
+  RLB block of it;
 
 then the device time and launches of each fused-kernel and
 ``tri_inv_lower`` CUDA function (and of the memsets) in one warm
-``lap3d_40`` factorization and its first device solve, from
-``torch.profiler``.  The inputs come from
-a seeded generator on the card.
+``lap3d_40`` factorization and its first device solve, and of every CUDA
+function of the port in one phase (a) run (with its wall seconds), from
+``torch.profiler``.  The inputs come from a seeded generator on the card.
 """
 from __future__ import annotations
 
 import json
 import sys
+import time
 from pathlib import Path
 
 
@@ -46,6 +53,7 @@ def main(tree: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import (
+        DeviceEngine,
         cached_schedule,
         cholesky,
         device_plan,
@@ -53,9 +61,11 @@ def main(tree: str) -> None:
     )
     from repro_torch.kernels import (
         _build,
+        chol_tile,
         fused_factor_syrk,
         gemm_nt,
         ops,
+        syrk_ln,
         tri_inv_lower,
         trsm_rlt,
     )
@@ -152,10 +162,34 @@ def main(tree: str) -> None:
         L, B = spd(W), randn(M, W)
         out[f"trsm_rlt {label} M={M} W={W}"] = ms(lambda: trsm_rlt(L, B),
                                                   20)
+    def spd_lower(W):  # an SPD matrix by its lower triangle
+        L_ = spd(W)
+        return torch.tril(L_ @ L_.mT)
+
     W = int(wsn.max())
-    A_ = torch.tril(spd(W) @ spd(W).mT)
+    A_ = spd_lower(W)
     out[f"potrf W={W}"] = ms(lambda: ops.potrf(A_), 5)
     del A_, L, B
+    tiles = {}  # the tile widths of phase (a)'s potrf calls, and spd tiles
+    for w_ in (int(x) for x in wsn):
+        for k0 in range(0, w_, 128):
+            n_ = min(128, w_ - k0)
+            tiles[n_] = tiles.get(n_, 0) + 1
+    spd_tiles = {n_: spd_lower(n_) for n_ in tiles}
+    out["chol_tile n=128"] = ms(lambda: chol_tile(spd_tiles[128]), 50)
+    mix = [spd_tiles[n_] for n_, c in sorted(tiles.items()) for _ in range(c)]
+
+    def run_mix():
+        for t in mix:
+            chol_tile(t)
+
+    out[f"chol_tile phase (a) width mix ({len(mix)} calls), total"] = ms(
+        run_mix, 2)
+    Mt, Kt = T.shape
+    out[f"syrk_ln tail M={Mt} K={Kt}"] = ms(lambda: syrk_ln(T), 20)
+    Tb = T[:64]
+    out[f"syrk_ln RLB block M=64 K={Kt}"] = ms(lambda: syrk_ln(Tb), 50)
+    del spd_tiles, mix
     # the diagonal blocks are inverted once per group, at the first solve
     b = np.ones(A.shape[0])
     cholesky(A, sym=sym, Aperm=Aperm).solve(b, backend="device")
@@ -188,6 +222,31 @@ def main(tree: str) -> None:
         out[f"lap3d_40 {k} kernel by function"] = fns
         out[f"lap3d_40 {k} kernel ms"] = sum(v["ms"] for v in fns.values())
     out["lap3d_40 memsets"] = memset
+    # phase (a): RL, every supernode on the card, unfused (potrf, trsm_rlt,
+    # syrk_ln), warm; then the same run under the profiler
+    def phase_a():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cholesky(A, method="rl", schedule="seq", offload_threshold=0,
+                 device_engine=DeviceEngine(fused=False), sym=sym,
+                 Aperm=Aperm)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    out["phase (a) seconds"] = [phase_a(), phase_a()]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        phase_a()
+    fns = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+        if dev_us > 0 and "anonymous namespace" in ev.key:
+            name = ev.key.split("::")[-1].split("(")[0]
+            fns[name] = {"ms": dev_us / 1e3, "launches": ev.count}
+    out["phase (a) kernels by function"] = fns
+    out["phase (a) device ms of the port's kernels"] = sum(
+        v["ms"] for v in fns.values())
     print(json.dumps(out), flush=True)
 
 

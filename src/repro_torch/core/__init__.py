@@ -59,14 +59,30 @@ from repro_torch.core.plan_cache import (
     pattern_fingerprint,
 )
 from repro_torch.core.refine import refine_partition, refine_solve
-from repro_torch.core.relind import build_scatter_plan, scatter_plan
+from repro_torch.core.relind import (
+    ancestor_updates,
+    build_scatter_plan,
+    count_blas_calls,
+    count_blocks,
+    scatter_plan,
+    supernode_blocks,
+)
 from repro_torch.core.schedule import (
     LevelSchedule,
     build_schedule,
     cached_schedule,
     group_flop_stats,
+    level_sets,
+    supernode_levels,
 )
-from repro_torch.core.symbolic import SymbolicFactor, symbolic_analyze
+from repro_torch.core.symbolic import (
+    SymbolicFactor,
+    col_counts,
+    etree,
+    find_supernodes,
+    postorder,
+    symbolic_analyze,
+)
 
 __all__ = [
     "counters", "cholesky", "cholesky_many", "solve", "symbolic_pipeline",
@@ -82,7 +98,11 @@ __all__ = [
     "factorize_rl", "factorize_rlb", "init_panel_store", "init_panels",
     "CachedPlan", "PlanCache", "build_fill_plan", "canonical_csc",
     "pattern_fingerprint",
-    "refine_partition", "refine_solve", "build_scatter_plan", "scatter_plan",
+    "refine_partition", "refine_solve", "ancestor_updates",
+    "build_scatter_plan", "count_blas_calls", "count_blocks", "scatter_plan",
+    "supernode_blocks",
     "LevelSchedule", "build_schedule", "cached_schedule", "group_flop_stats",
-    "SymbolicFactor", "symbolic_analyze",
+    "level_sets", "supernode_levels",
+    "SymbolicFactor", "col_counts", "etree", "find_supernodes", "postorder",
+    "symbolic_analyze",
 ]

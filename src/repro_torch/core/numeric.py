@@ -156,6 +156,17 @@ class CholeskyFactor:
                 L[r[c:], f + c] = P[c:, c]
         return L
 
+    def factor_nnz(self) -> int:
+        return self.sym.factor_nnz()
+
+    def logdet(self) -> float:
+        acc = 0.0
+        for s in range(self.sym.nsuper):
+            w = self.sym.width(s)
+            d = np.diagonal(self.panels[s][:w, :w])
+            acc += float(np.sum(np.log(d)))
+        return 2.0 * acc
+
     def solve(self, b: np.ndarray, *, backend: str = "host",
               engine=None, refine: bool | None = None) -> np.ndarray:
         """Solve A x = b using P A P^T = L L^T.

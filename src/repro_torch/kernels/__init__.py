@@ -9,7 +9,8 @@ version beside it in the same module:
              (replace src/repro/kernels/trsm.py::trsm_rlt)
     potrf  — Cholesky of one diagonal tile, and the blocked routine over it
              (replaces src/repro/kernels/potrf.py::chol_tile / potrf)
-    syrk   — C = tril(A A^T)   (replaces src/repro/kernels/syrk.py::syrk_ln)
+    syrk   — C = tril(A A^T), and C -= A A^T on the lower triangle in
+             place (replaces src/repro/kernels/syrk.py::syrk_ln)
     gemm   — C = A B^T         (replaces src/repro/kernels/gemm.py::gemm_nt)
 
 ``ops`` chains them into the sequential path's dense operations (the
@@ -26,7 +27,12 @@ from repro_torch.kernels.fused import (
 )
 from repro_torch.kernels.gemm import gemm_nt, gemm_nt_ref
 from repro_torch.kernels.potrf import chol_tile, chol_tile_ref, potrf_ref
-from repro_torch.kernels.syrk import syrk_ln, syrk_ln_ref
+from repro_torch.kernels.syrk import (
+    syrk_ln,
+    syrk_ln_ref,
+    syrk_ln_sub,
+    syrk_ln_sub_ref,
+)
 from repro_torch.kernels.trsm import (
     tri_inv_lower,
     tri_inv_lower_ref,
@@ -44,4 +50,5 @@ __all__ = ["fused_factor_syrk", "fused_factor_syrk_ref",
            "tri_inv_lower",
            "tri_inv_lower_ref", "trsm_rlt", "trsm_rlt_ref", "chol_tile",
            "chol_tile_ref", "potrf_ref", "syrk_ln", "syrk_ln_ref",
+           "syrk_ln_sub", "syrk_ln_sub_ref",
            "gemm_nt", "gemm_nt_ref", "KERNELS"]

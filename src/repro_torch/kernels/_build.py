@@ -46,6 +46,7 @@ SIGNATURES = {
     },
     "syrk_ln": {
         "syrk_ln_launch": ([_P, _I, _P, _I, _I, _I, _I, _P], _I),
+        "syrk_ln_sub_launch": ([_P, _I, _P, _I, _I, _I, _I, _P], _I),
         "syrk_ln_error": ([_I], ctypes.c_char_p),
     },
     "chol_tile": {

@@ -67,7 +67,10 @@
 // no live rows or wholly above the diagonal exit.  Nothing assumes Wp is a
 // multiple of 64 (the last slab is narrower; the diagonal block is padded
 // with the identity in shared memory) or that a lane starts 16-byte
-// aligned (the tile picks 8- or 16-byte copies per operand).  All launches
+// aligned (the tile picks 8- or 16-byte copies per operand).  Lanes sit
+// lane-major on gridDim.x (block t of lane b is b * per + t), which takes
+// 2^31 - 1 blocks where gridDim.y took 65,535 lanes, so cholesky_many may
+// stack any number of matrices into one call.  All launches
 // go on the caller's stream; the kernel allocates nothing (the wrapper
 // passes the counters).  Launches per call: the mask pass, one memset,
 // per slab the panel launch and, while real columns remain right of the
@@ -114,6 +117,7 @@
 namespace {
 
 constexpr int NB = DT;        // slab width
+constexpr int ENT = 256;      // threads of the mask pass and the status init
 constexpr int PNT = 128;      // threads of the panel kernel (4 warps)
 constexpr int SB = 8;         // sub-block width of the diagonal factor
 constexpr int NSB = NB / SB;  // sub-blocks per slab
@@ -153,15 +157,18 @@ __device__ __forceinline__ bool tile_live(int r0, int r1, int w, int m,
   return r0 < w || (r0 < Wp + m && r1 > Wp);
 }
 
-// Blocks of the panel launch per lane: blockIdx.x takes the lane's 64-row
-// tiles bx, bx + gridDim.x, ...  Each block factors and inverts the slab's
-// diagonal block, then solves its tiles, X = A21 L11^-T on DMMA.  cnt
-// counts this slab's blocks per lane; the last to count writes L11 back.
+// Blocks of the panel launch: nbl per lane, lane-major on gridDim.x (block
+// bx of lane b is blockIdx.x = b nbl + bx), so any number of lanes
+// launches.  Block bx takes the lane's 64-row tiles bx, bx + nbl, ...  Each
+// block factors and inverts the slab's diagonal block, then solves its
+// tiles, X = A21 L11^-T on DMMA.  cnt counts this slab's blocks per lane;
+// the last to count writes L11 back.
 __global__ void __launch_bounds__(PNT)
     panel_kernel(double* __restrict__ fp, const int* __restrict__ rows,
                  const int* __restrict__ ws, int* __restrict__ cnt, int Lp,
-                 int Wp, int k0, int nbk) {
-  const int b = blockIdx.y, tid = threadIdx.x;
+                 int Wp, int k0, int nbk, int nbl) {
+  const int b = blockIdx.x / nbl, bx = blockIdx.x - b * nbl;
+  const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int w = ws[b];
   if (w <= k0) return;  // identity slab: nothing to factor
@@ -169,13 +176,13 @@ __global__ void __launch_bounds__(PNT)
   const int k1 = k0 + nbk;
   const int nrt = (Lp - k1 + DT - 1) / DT;
   double* panel = fp + (size_t)b * Lp * Wp;
-  int t0 = blockIdx.x;  // this block's first tile with a live row
+  int t0 = bx;  // this block's first tile with a live row
   while (t0 < nrt && !tile_live(k1 + t0 * DT, min(k1 + (t0 + 1) * DT, Lp),
                                 w, m, Wp))
-    t0 += gridDim.x;
+    t0 += nbl;
   __shared__ int last;
   if (t0 >= nrt) {  // no rows to solve: count, and go on only if last
-    if (tid == 0) last = atomicAdd(cnt + b, 1) == (int)gridDim.x - 1;
+    if (tid == 0) last = atomicAdd(cnt + b, 1) == nbl - 1;
     __syncthreads();
     if (!last) return;
   }
@@ -208,7 +215,7 @@ __global__ void __launch_bounds__(PNT)
   for (int i = nbk + tid; i < NB; i += PNT) L[i * PLD + i] = 1.0;
   if (t0 < nrt && tid == 0) {  // A11 is read: count (read after barriers)
     __threadfence();
-    last = atomicAdd(cnt + b, 1) == (int)gridDim.x - 1;
+    last = atomicAdd(cnt + b, 1) == nbl - 1;
   }
   __syncthreads();
   // Blocked right-looking Cholesky of L in 8-wide sub-blocks.  A pivot x
@@ -225,17 +232,7 @@ __global__ void __launch_bounds__(PNT)
     double a[SB], rq[SB];
 #pragma unroll
     for (int p = 0; p < SB; ++p) a[p] = L[(j0 + i) * PLD + j0 + p];
-#pragma unroll
-    for (int q = 0; q < SB; ++q) {
-      const double x = __shfl_sync(0xffffffffu, a[q], q);
-      rq[q] = rsqrt(x);
-      a[q] = i == q ? x * rq[q] : (i > q ? a[q] * rq[q] : 0.0);
-#pragma unroll
-      for (int p = q + 1; p < SB; ++p) {
-        const double lpq = __shfl_sync(0xffffffffu, a[q], p);
-        if (i >= p) a[p] -= a[q] * lpq;
-      }
-    }
+    chol8_rsqrt(a, rq, i);
     // column c = i of DJ = L_JJ^-1 by forward substitution, with the rows
     // of L_JJ read from their lanes:
     //   x[r] = (d_rc - sum_{p<r} L[r][p] x[p]) / L[r][r]
@@ -336,7 +333,7 @@ __global__ void __launch_bounds__(PNT)
   __syncthreads();  // D is free: P overwrites it below
   tri_inv64_doubling(L, Li, P);
   // X = A21 Li^T, tile by tile: acc[r][c] = sum_k X[r][k] Li[c][k]
-  for (int t = t0; t < nrt; t += gridDim.x) {
+  for (int t = t0; t < nrt; t += nbl) {
     const int r0 = k1 + t * DT, r1 = min(r0 + DT, Lp);
     if (t != t0) {
       if (!tile_live(r0, r1, w, m, Wp)) continue;
@@ -370,13 +367,14 @@ __global__ void __launch_bounds__(PNT)
 __global__ void __launch_bounds__(DNT)
     trailing_kernel(double* __restrict__ fp, const int* __restrict__ rows,
                     const int* __restrict__ ws, int Lp, int Wp, int k0,
-                    int nbk, int nct) {
-  const int b = blockIdx.y;
+                    int nbk, int nrt, int nct) {
+  // nrt x nct tiles per lane, lane-major on gridDim.x
+  const int b = blockIdx.x / (nrt * nct), t = blockIdx.x - b * (nrt * nct);
   const int w = ws[b];
   const int k1 = k0 + nbk;
   if (w <= k1) return;  // no real column right of the slab
   const int m = rows[b] - w;
-  const int ct = blockIdx.x % nct, rt = blockIdx.x / nct;
+  const int ct = t % nct, rt = t / nct;
   const int c0 = k1 + ct * DT, r0 = k1 + rt * DT;
   if (c0 >= w) return;          // identity columns receive no update
   if (r0 + DT <= c0) return;    // tile wholly above the diagonal
@@ -404,9 +402,10 @@ __global__ void __launch_bounds__(DNT)
     syrk_kernel(const double* __restrict__ fp, double* __restrict__ u,
                 const int* __restrict__ rows, const int* __restrict__ ws,
                 int Lp, int Wp, int nt) {
-  const int b = blockIdx.y;
+  // nt x nt tiles per lane, lane-major on gridDim.x
+  const int b = blockIdx.x / (nt * nt), t = blockIdx.x - b * (nt * nt);
   const int w = ws[b], m = rows[b] - w, mp = Lp - Wp;
-  const int rt = blockIdx.x / nt, ct = blockIdx.x % nt;
+  const int rt = t / nt, ct = t % nt;
   if (ct > rt) return;
   const int r0 = rt * DT, c0 = ct * DT;
   if (r0 >= m) return;  // c0 <= r0, so the whole tile is past the tail
@@ -568,9 +567,46 @@ static int panel_blocks(int nrt, int Bp, int sms) {
   return nrt < 1 ? 1 : (nrt < wave ? nrt : (wave > 1 ? wave : 1));
 }
 
+// A grid of per blocks for each of Bp lanes, lane-major on gridDim.x: it
+// must fit the x dimension (2^31 - 1 blocks).
+static cudaError_t lane_grid(long long per, int Bp) {
+  return per * Bp <= 0x7fffffffLL ? cudaSuccess
+                                  : cudaErrorInvalidConfiguration;
+}
+
+// The trailing launch of the slab [k0, k0 + nbk), while real columns
+// remain right of it.
+static cudaError_t trailing(double* fp, const int* rows, const int* ws,
+                            int Bp, int Lp, int Wp, int k0, int nbk,
+                            cudaStream_t stream) {
+  const int k1 = k0 + nbk;
+  const int nrt = (Lp - k1 + DT - 1) / DT;
+  const int nct = (Wp - k1 + DT - 1) / DT;
+  if (nct <= 0) return cudaSuccess;
+  cudaError_t err = lane_grid((long long)nrt * nct, Bp);
+  if (err != cudaSuccess) return err;
+  trailing_kernel<<<nrt * nct * Bp, DNT, DMMA_SMEM_BYTES, stream>>>(
+      fp, rows, ws, Lp, Wp, k0, nbk, nrt, nct);
+  return cudaGetLastError();
+}
+
+// The SYRK launch, when Lp > Wp.
+static cudaError_t syrk(const double* fp, double* u, const int* rows,
+                        const int* ws, int Bp, int Lp, int Wp,
+                        cudaStream_t stream) {
+  const int mp = Lp - Wp;
+  if (mp <= 0) return cudaSuccess;
+  const int nt = (mp + DT - 1) / DT;
+  cudaError_t err = lane_grid((long long)nt * nt, Bp);
+  if (err != cudaSuccess) return err;
+  syrk_kernel<<<nt * nt * Bp, DNT, DMMA_SMEM_BYTES, stream>>>(
+      fp, u, rows, ws, Lp, Wp, nt);
+  return cudaGetLastError();
+}
+
 // Blocks of the grid-stride mask pass over total cells.
 static int mask_blocks(long long total) {
-  const long long want = (total + NT - 1) / NT;
+  const long long want = (total + ENT - 1) / ENT;
   return (int)(want < 132LL * 32 ? (want > 0 ? want : 1) : 132LL * 32);
 }
 
@@ -589,7 +625,7 @@ extern "C" int fused_factor_syrk_launch(const double* panels, const int* rows,
   const int nb = Wp < NB ? Wp : NB;
   const int nslab = (Wp + nb - 1) / nb;
   const long long total = (long long)Bp * Lp * Wp;
-  mask_kernel<<<mask_blocks(total), NT, 0, stream>>>(
+  mask_kernel<<<mask_blocks(total), ENT, 0, stream>>>(
       panels, fp, rows, ws, cnt, nslab * Bp, Lp, Wp, total);
   CHECK(cudaGetLastError());
   const int mp = Lp - Wp;
@@ -601,25 +637,14 @@ extern "C" int fused_factor_syrk_launch(const double* panels, const int* rows,
     const int nbk = nb < Wp - k0 ? nb : Wp - k0;
     const int k1 = k0 + nbk;
     const int nrt = (Lp - k1 + DT - 1) / DT;
-    panel_kernel<<<dim3(panel_blocks(nrt, Bp, sms), Bp), PNT, PANEL_SMEM,
-                   stream>>>(fp, rows, ws, cnt + (size_t)s * Bp, Lp, Wp, k0,
-                             nbk);
+    const int nbl = panel_blocks(nrt, Bp, sms);
+    CHECK(lane_grid(nbl, Bp));
+    panel_kernel<<<nbl * Bp, PNT, PANEL_SMEM, stream>>>(
+        fp, rows, ws, cnt + (size_t)s * Bp, Lp, Wp, k0, nbk, nbl);
     CHECK(cudaGetLastError());
-    const int nct = (Wp - k1 + DT - 1) / DT;
-    if (nct > 0) {
-      trailing_kernel<<<dim3(nrt * nct, Bp), DNT, DMMA_SMEM_BYTES,
-                        stream>>>(
-          fp, rows, ws, Lp, Wp, k0, nbk, nct);
-      CHECK(cudaGetLastError());
-    }
+    CHECK(trailing(fp, rows, ws, Bp, Lp, Wp, k0, nbk, stream));
   }
-  if (mp > 0) {
-    const int nt = (mp + DT - 1) / DT;
-    syrk_kernel<<<dim3(nt * nt, Bp), DNT, DMMA_SMEM_BYTES, stream>>>(
-        fp, u, rows, ws, Lp, Wp, nt);
-    CHECK(cudaGetLastError());
-  }
-  return 0;
+  return syrk(fp, u, rows, ws, Bp, Lp, Wp, stream);
 }
 
 // As fused_factor_syrk_launch, plus st: (Bp, 4) fp64 per-lane status, and
@@ -633,11 +658,11 @@ extern "C" int fused_factor_syrk_guarded_launch(
   int sms = 0;
   CHECK(prepare(device, &sms));
   const long long total = (long long)Bp * Lp * Wp;
-  mask_kernel<<<mask_blocks(total), NT, 0, stream>>>(panels, fp, rows, ws,
+  mask_kernel<<<mask_blocks(total), ENT, 0, stream>>>(panels, fp, rows, ws,
                                                      nullptr, 0, Lp, Wp,
                                                      total);
   CHECK(cudaGetLastError());
-  status_init_kernel<<<(Bp + NT - 1) / NT, NT, 0, stream>>>(st, Bp);
+  status_init_kernel<<<(Bp + ENT - 1) / ENT, ENT, 0, stream>>>(st, Bp);
   CHECK(cudaGetLastError());
   const int mp = Lp - Wp;
   if (mp > 0)
@@ -646,26 +671,12 @@ extern "C" int fused_factor_syrk_guarded_launch(
   const int nb = Wp < NB ? Wp : NB;
   for (int k0 = 0; k0 < Wp; k0 += nb) {
     const int nbk = nb < Wp - k0 ? nb : Wp - k0;
-    const int k1 = k0 + nbk;
     guarded_slab_kernel<<<Bp, GNT, 0, stream>>>(fp, rows, ws, st, Lp, Wp, k0,
                                                 nbk, thr, gf);
     CHECK(cudaGetLastError());
-    const int nrt = (Lp - k1 + DT - 1) / DT;
-    const int nct = (Wp - k1 + DT - 1) / DT;
-    if (nct > 0) {
-      trailing_kernel<<<dim3(nrt * nct, Bp), DNT, DMMA_SMEM_BYTES,
-                        stream>>>(
-          fp, rows, ws, Lp, Wp, k0, nbk, nct);
-      CHECK(cudaGetLastError());
-    }
+    CHECK(trailing(fp, rows, ws, Bp, Lp, Wp, k0, nbk, stream));
   }
-  if (mp > 0) {
-    const int nt = (mp + DT - 1) / DT;
-    syrk_kernel<<<dim3(nt * nt, Bp), DNT, DMMA_SMEM_BYTES, stream>>>(
-        fp, u, rows, ws, Lp, Wp, nt);
-    CHECK(cudaGetLastError());
-  }
-  return 0;
+  return syrk(fp, u, rows, ws, Bp, Lp, Wp, stream);
 }
 
 extern "C" const char* fused_factor_syrk_error(int code) {

@@ -5,8 +5,7 @@
 // (_gemm_nt_kernel): 128 x 128 output tiles fed to the MXU by a sequential
 // K reduction, on operands that ops.gemm_nt zero-pads to multiples of 128.
 // On the sequential path it computes RLB's off-diagonal block updates
-// (engines._gemm_block_fn) and, inside the blocked potrf routine, the panel
-// below each diagonal tile times that tile's inverse.
+// (engines._gemm_block_fn).
 //
 // Bound on this card: 2 M N K flops against 8 (M K + N K + M N) bytes, so
 // the large products are flop-bound at the fp64 tensor-core peak

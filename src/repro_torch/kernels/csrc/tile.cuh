@@ -1,24 +1,18 @@
-// The shared tile loops of the port's GEMM-shaped kernels, the inverse of a
-// 64 x 64 lower-triangular block in shared memory, and the CHECK macro of
-// their launch functions.
+// The fp64 tensor-core tiles of the port's GEMM-shaped kernels, the inverse
+// of a 64 x 64 lower-triangular block in shared memory, and the CHECK macro
+// of their launch functions.
 //
-// gemm_nt_tile, the scalar loop of syrk_ln.cu: one block of
-// NT = 256 threads computes a TILE x TILE (64 x 64) fp64 product tile, each
-// thread holding a 4 x 4 accumulator; the two operands' row panels stream
-// through shared memory in K-chunks of TK = 8, stored transposed with a
-// padded stride (TILE + 1) so the inner loop reads without bank conflicts.
-// Rows past the operands' extents and columns past K read as zero, so every
-// edge is masked and nothing is padded.
-//
-// dmma_tile_nt, the fp64 tensor-core tile of gemm_nt.cu and of the fused
-// kernel's trailing update and SYRK (fused_factor_syrk.cu), and its twin
-// dmma_tile_nn (C = A B with B row-major K x N, the products of
-// tri_inv.cu): the same 64 x 64 C = A B^T tile on Hopper's fp64 tensor
-// cores, through
-// mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 (DMMA; wgmma has no fp64
-// form).  Of the fp64 shapes, m16n8k8 and m16n8k16 reach the card's fp64
-// tensor rate; the older m8n8k4 issues at half of it on the H100
-// (scripts/dmma_rates.cu).  A block of DNT = 256 threads is 2 x 4 warps,
+// dmma_tile_nt, the fp64 tensor-core tile of gemm_nt.cu, syrk_ln.cu and
+// the fused kernel's trailing update and SYRK (fused_factor_syrk.cu), and
+// its twin dmma_tile_nn (C = A B with B row-major K x N, the products of
+// tri_inv.cu): a 64 x 64 C = A B^T tile on Hopper's fp64 tensor cores,
+// through mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 (DMMA; wgmma
+// has no fp64 form).  The single-fragment helpers below (dmma, frag_a,
+// frag_bt, frag_b, frag_row, frag_col) also serve the blocked 8-wide
+// factors of the fused panel kernel and chol_tile.cu.  Of the fp64
+// shapes, m16n8k8 and m16n8k16 reach the card's fp64 tensor rate; the
+// older m8n8k4 issues at half of it on the H100 (scripts/dmma_rates.cu).
+// A block of DNT = 256 threads is 2 x 4 warps,
 // each owning a 32 x 16 piece of the tile as 2 x 2 fragments of 16 x 8
 // (32 accumulator registers); two warps share each of the SM's four
 // schedulers, so one stages its copies while the other multiplies.  For
@@ -60,7 +54,10 @@
 // 8 x 8 diagonal blocks by forward substitution in registers, then the
 // doubling inv([A 0; C B]) = [A^-1 0; -B^-1 C A^-1  B^-1] on DMMA
 // fragments for h = 8, 16, 32, by a block of 4 warps (the fused panel
-// kernel, tri_inv.cu's diagonal blocks, trsm_rlt.cu's steps).
+// kernel, tri_inv.cu's diagonal blocks, trsm_rlt.cu's steps).  Before
+// them, chol8_rsqrt: a warp's Cholesky of an 8 x 8 block in registers,
+// the serial step of the fused panel kernel's and chol_tile.cu's blocked
+// factors.
 #pragma once
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -72,48 +69,6 @@
   } while (0)
 
 namespace {
-
-constexpr int TILE = 64;  // output tile edge
-constexpr int TK = 8;     // depth of one shared-memory K chunk
-constexpr int NT = 256;   // threads per block
-constexpr int LDT = TILE + 1;
-
-// acc[i][j] += sum_k A[r][k] * B[c][k] for r = ty + 16 i, c = tx + 16 j,
-// k in [0, K), with tx = threadIdx.x % 16 and ty = threadIdx.x / 16.  Rows
-// past arows / brows read as zero.  As and Bs hold TK * LDT doubles each.
-// No __restrict__: syrk_ln.cu passes one matrix as both operands.  Every
-// thread of the block must call it (it holds block barriers).
-__device__ __forceinline__ void gemm_nt_tile(const double* A, int lda,
-                                             int arows, const double* B,
-                                             int ldb, int brows, int K,
-                                             double (&acc)[4][4], double* As,
-                                             double* Bs) {
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  for (int k0 = 0; k0 < K; k0 += TK) {
-    for (int e = tid; e < TILE * TK; e += NT) {
-      const int r = e / TK, k = e % TK;
-      const bool kin = k0 + k < K;
-      As[k * LDT + r] = (r < arows && kin) ? A[(size_t)r * lda + k0 + k] : 0.0;
-      Bs[k * LDT + r] = (r < brows && kin) ? B[(size_t)r * ldb + k0 + k] : 0.0;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      double a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = As[k * LDT + ty + 16 * i];
-        b[i] = Bs[k * LDT + tx + 16 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // fp64 tensor-core (DMMA) tile
@@ -342,6 +297,28 @@ __device__ __forceinline__ void dmma_tile_nn(const double* A, int lda,
   dmma_tile<false>(A, lda, arows, B, ldb, bcols, K, acc, sm);
 }
 
+
+// The Cholesky factor of an 8 x 8 block held by a warp, lane i (mod 8)
+// holding row i in a[] (cells above the diagonal are never read, and come
+// out zero): for each column q the pivot x gives rq[q] = rsqrt(x), L_qq =
+// x rq[q] and the column below scaled by rq[q] -- no division; a pivot
+// <= 0 gives NaN, as sqrt does -- then the update of the columns right of
+// q, each row of the column read from its lane.  All 32 lanes call it (the
+// 8-wide factors of the fused panel kernel and of chol_tile.cu).
+__device__ __forceinline__ void chol8_rsqrt(double (&a)[8], double (&rq)[8],
+                                            int i) {
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const double x = __shfl_sync(0xffffffffu, a[q], q);
+    rq[q] = rsqrt(x);
+    a[q] = i == q ? x * rq[q] : (i > q ? a[q] * rq[q] : 0.0);
+#pragma unroll
+    for (int p = q + 1; p < 8; ++p) {
+      const double lpq = __shfl_sync(0xffffffffu, a[q], p);
+      if (i >= p) a[p] -= a[q] * lpq;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // Inverse of a 64 x 64 lower-triangular block in shared memory (the fused

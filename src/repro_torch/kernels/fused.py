@@ -178,8 +178,6 @@ def _check_group(panels: torch.Tensor, rows: torch.Tensor,
     Bp, Lp, Wp = panels.shape
     if Lp < Wp or Wp < 1:
         raise ValueError(f"bad panel shape {tuple(panels.shape)}")
-    if Bp > 65535:
-        raise ValueError(f"{Bp} lanes; the kernels' grid takes at most 65535")
     for name, t in (("rows", rows), ("ws", ws)):
         if (t.device != panels.device or t.dtype != torch.int32
                 or t.shape != (Bp,) or not t.is_contiguous()):

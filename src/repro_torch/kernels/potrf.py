@@ -4,31 +4,37 @@ routine ``potrf``.
 ``chol_tile`` is the port of the TPU kernel
 ``src/repro/kernels/potrf.py::chol_tile``: on a CUDA tensor it launches the
 hand-written kernel in ``csrc/chol_tile.cu`` (one tile of at most 128 x 128
-in one block's shared memory, see the note there); on a CPU tensor it runs
-``chol_tile_ref``.
+in one block's shared memory, factored in 8-wide sub-blocks with DMMA
+fragments; see the note there); on a CPU tensor it runs ``chol_tile_ref``.
 
-``potrf`` is the reference's blocked routine (``potrf.py:70-105``) in Python,
-one step per 128 columns:
+``potrf`` is the reference's blocked routine (``potrf.py:70-105``) in
+Python, one step per 128 columns, in place on one copy of the input's
+lower triangle:
 
-    L_kk = chol_tile(A_kk)
-    X    = gemm_nt(A_{k+1:,k}, tri_inv_lower(L_kk))     # A_{k+1:,k} L_kk^{-T}
-    A_{k+1:,k+1:} -= syrk_ln(X)                         # trailing update
+    L_kk = chol_tile(A_kk)                    # over A_kk
+    X    = trsm_rlt(L_kk, A_{k+1:,k})         # X L_kk^T = A_{k+1:,k}, over it
+    A_{k+1:,k+1:} -= X X^T  (lower triangle)  # syrk_ln_sub, in place
 
-where the reference inverts ``L_kk`` with an XLA triangular solve and the
-port with its ``tri_inv_lower`` kernel.  The trailing subtraction is
-elementwise PyTorch.  Every step goes through the wrappers, so the routine
-runs the kernels on a card and their plain versions on the CPU.  The
-kernels mask ragged edges, so no width is padded.  Only the lower triangle
-of the input is read.
+The reference computes ``X`` as ``A_{k+1:,k} @ inv(L_kk)^T`` and the
+trailing matrix as ``trail - syrk_ln(X)``; the port solves with its
+one-launch ``trsm_rlt`` (whose error follows the conditioning of L_kk's
+64-wide diagonal blocks, not of L_kk) and subtracts in place, so a step
+below the last is three launches and no PyTorch operation, and the
+routine one ``tril`` copy besides.  Bound: W^3/3 flops at the fp64
+tensor-core peak for large W; what holds it back is the host's three
+wrapper calls a step (20-40 us each on the card's machine) and the
+latency-bound ``chol_tile``.  Every step goes through the wrappers, so the
+routine runs the kernels on a card and their plain versions on the CPU.
+The kernels mask ragged edges, so no width is padded.  Only the lower
+triangle of the input is read.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.gemm import gemm_nt
-from repro_torch.kernels.syrk import syrk_ln
-from repro_torch.kernels.trsm import tri_inv_lower
+from repro_torch.kernels.syrk import syrk_ln_sub
+from repro_torch.kernels.trsm import trsm_rlt
 
 #: tile edge of the blocked routine (the reference's nb)
 NB = 128
@@ -49,13 +55,18 @@ def chol_tile_ref(A: torch.Tensor) -> torch.Tensor:
                                             device=L.device), L)
 
 
-def chol_tile(A: torch.Tensor) -> torch.Tensor:
+def chol_tile(A: torch.Tensor, *,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """Cholesky factor of one (n, n) float64 tile, n <= 128, read from its
     lower triangle (rows contiguous).  Returns a contiguous lower (n, n)
-    tensor with a zero strict upper triangle.  ``chol_tile.launches`` counts
-    the calls that launched the CUDA kernel."""
+    tensor with a zero strict upper triangle, or writes it into ``out``
+    (an (n, n) float64 matrix with contiguous rows, which may be ``A``
+    itself but must not otherwise overlap it) and returns ``out``.
+    ``chol_tile.launches`` counts the calls that launched the CUDA
+    kernel."""
     if A.device.type == "cpu":
-        return chol_tile_ref(A)
+        L = chol_tile_ref(A)
+        return L if out is None else out.copy_(L)
     if A.device.type != "cuda":
         raise ValueError(f"unsupported device {A.device}")
     _build.check_matrix("A", A, A.device)
@@ -63,14 +74,20 @@ def chol_tile(A: torch.Tensor) -> torch.Tensor:
     if A.shape[1] != n or not 1 <= n <= NB:
         raise ValueError(f"A must be (n, n) with 1 <= n <= {NB}, got "
                          f"{tuple(A.shape)}")
-    L = A.new_empty((n, n))
+    if out is None:
+        out = A.new_empty((n, n))
+    else:
+        _build.check_matrix("out", out, A.device)
+        if out.shape != A.shape:
+            raise ValueError(f"out must be ({n}, {n}), got "
+                             f"{tuple(out.shape)}")
     lib = _build.load("chol_tile")
     rc = lib.chol_tile_launch(
-        A.data_ptr(), _build.ld(A), L.data_ptr(), n, n, A.device.index or 0,
-        _build.stream(A.device))
+        A.data_ptr(), _build.ld(A), out.data_ptr(), _build.ld(out), n,
+        A.device.index or 0, _build.stream(A.device))
     _build.check(lib, "chol_tile_error", rc, "chol_tile")
     chol_tile.launches += 1
-    return L
+    return out
 
 
 chol_tile.launches = 0
@@ -89,15 +106,17 @@ def potrf(A: torch.Tensor) -> torch.Tensor:
     W = A.shape[0]
     if W <= NB:
         return chol_tile(A)
-    a = A.clone(memory_format=torch.contiguous_format)  # the trailing matrix
-    L = torch.zeros_like(a)
+    # the trailing matrix and the factor share one buffer: each step
+    # overwrites its column block with L's, and the strict upper triangle
+    # stays zero (every kernel writes only on or below the diagonal)
+    L = torch.tril(A).contiguous()
     for k0 in range(0, W, NB):
         k1 = min(k0 + NB, W)
-        lkk = chol_tile(a[k0:k1, k0:k1])
-        L[k0:k1, k0:k1] = lkk
+        lkk = L[k0:k1, k0:k1]
+        chol_tile(lkk, out=lkk)
         if k1 == W:
             break
-        x = gemm_nt(a[k1:, k0:k1], tri_inv_lower(lkk[None])[0])
-        a[k1:, k1:] -= syrk_ln(x)
-        L[k1:, k0:k1] = x
+        x = L[k1:, k0:k1]
+        trsm_rlt(lkk, x, out=x)
+        syrk_ln_sub(L[k1:, k1:], x)
     return L

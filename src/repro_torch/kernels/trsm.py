@@ -92,14 +92,19 @@ def trsm_rlt_ref(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(L, B.mT, upper=False).mT
 
 
-def trsm_rlt(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+def trsm_rlt(L: torch.Tensor, B: torch.Tensor, *,
+             out: torch.Tensor | None = None) -> torch.Tensor:
     """Solve ``X L^T = B`` for ``X``: ``L`` (W, W) float64 lower triangular
     (its strict upper triangle is never used), ``B`` (M, W) float64, both
-    with contiguous rows.  Returns a contiguous (M, W) tensor.  One kernel
-    launch, which also inverts the 64-wide diagonal blocks;
+    with contiguous rows.  Returns a contiguous (M, W) tensor, or writes X
+    into ``out`` (an (M, W) float64 matrix with contiguous rows, which may
+    be ``B`` itself -- each row block of B is read before its X is written
+    -- but must not otherwise overlap ``B`` or ``L``) and returns ``out``.
+    One kernel launch, which also inverts the 64-wide diagonal blocks;
     ``trsm_rlt.launches`` counts the calls that launched it."""
     if L.device.type == "cpu":
-        return trsm_rlt_ref(L, B)
+        X = trsm_rlt_ref(L, B)
+        return X if out is None else out.copy_(X)
     if L.device.type != "cuda":
         raise ValueError(f"unsupported device {L.device}")
     _build.check_matrix("L", L, L.device)
@@ -109,13 +114,21 @@ def trsm_rlt(L: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"L must be (W, W) and B (M, W); got "
                          f"{tuple(L.shape)} and {tuple(B.shape)}")
     M = B.shape[0]
-    X = B.new_empty((M, W))
+    if out is None:
+        X = B.new_empty((M, W))
+    else:
+        _build.check_matrix("out", out, L.device)
+        if out.shape != B.shape:
+            raise ValueError(f"out must be {tuple(B.shape)}, got "
+                             f"{tuple(out.shape)}")
+        X = out
     if M == 0 or W == 0:
         return X
     lib = _build.load("trsm_rlt")
     rc = lib.trsm_rlt_launch(
         B.data_ptr(), _build.ld(B), L.data_ptr(), _build.ld(L),
-        X.data_ptr(), W, M, W, L.device.index, _build.stream(L.device))
+        X.data_ptr(), _build.ld(X), M, W, L.device.index,
+        _build.stream(L.device))
     _build.check(lib, "trsm_rlt_error", rc, "trsm_rlt")
     trsm_rlt.launches += 1
     return X

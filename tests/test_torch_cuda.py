@@ -37,6 +37,7 @@ from repro_torch.kernels import (
     potrf_ref,
     syrk_ln,
     syrk_ln_ref,
+    syrk_ln_sub,
     tri_inv_lower,
     tri_inv_lower_ref,
     trsm_rlt,
@@ -196,6 +197,34 @@ def test_tri_inv_kernel_nan_stays_in_its_lane(card):
     assert _rel(X[keep], tri_inv_lower_ref(Lc[keep])) <= 1e-10
 
 
+@pytest.mark.parametrize("guard", [False, True])
+def test_fused_kernel_past_the_grid_y_limit(card, guard):
+    # cholesky_many stacks M * Bp lanes into one call (M >= 257 full groups
+    # of 256 pass 65,535): every launch of the fused kernel, guarded or
+    # not, must take more lanes than a grid's y dimension
+    Bp, Lp, Wp = 70_000, 20, 8
+    rng = np.random.default_rng(70)
+    ws = rng.integers(0, Wp + 1, Bp).astype(np.int32)
+    rows = np.where(ws > 0, ws + rng.integers(0, Lp - Wp + 1, Bp),
+                    0).astype(np.int32)
+    G = rng.standard_normal((Bp, Wp, Wp))
+    p = rng.standard_normal((Bp, Lp, Wp))
+    p[:, :Wp] = G @ G.transpose(0, 2, 1) / Wp + 2 * np.eye(Wp)
+    p, rows, ws = (torch.from_numpy(a).to(card) for a in (p, rows, ws))
+    if guard:
+        fp, u, st = fused_factor_syrk(p, rows, ws, guard=True, thr=1e-3)
+        fr, ur, sr = fused_factor_syrk_guarded_ref(p, rows, ws, 1e-3)
+        torch.cuda.synchronize()
+        assert torch.equal(st[:, 1:3], sr[:, 1:3])
+        assert torch.allclose(st[:, [0, 3]], sr[:, [0, 3]], rtol=1e-10,
+                              atol=0)
+    else:
+        fp, u = fused_factor_syrk(p, rows, ws)
+        fr, ur = fused_factor_syrk_ref(p, rows, ws)
+        torch.cuda.synchronize()
+    assert _rel(fp, fr) <= 1e-10 and _rel(u, ur) <= 1e-10
+
+
 def test_tri_inv_kernel_past_the_grid_y_limit(card):
     # cholesky_many stacks M * Bp lanes into one call: more lanes than a
     # grid's y dimension takes (65,535) must launch
@@ -338,6 +367,120 @@ def test_potrf_on_card_matches_plain(card, W):
     torch.cuda.synchronize()
     assert _rel(L, potrf_ref(A)) <= 1e-10
     assert not torch.triu(L, 1).any()
+
+
+TILE_NS = [1, 2, 7, 8, 9, 16, 33, 63, 64, 65, 127, 128]
+
+
+@pytest.mark.parametrize("n", TILE_NS)
+def test_chol_tile_kernel_odd_ld_and_offset(card, n):
+    # a slice at leading dimension n + 9 and an odd offset (8-byte rows),
+    # garbage above the diagonal; one launch per call
+    A = _spd_garbage(n + 9, n, card)[3:n + 3, 5:n + 5]
+    A[:] = _spd_garbage(n, n, card)
+    before = chol_tile.launches
+    L = chol_tile(A)
+    torch.cuda.synchronize()
+    assert chol_tile.launches == before + 1
+    assert _rel(L, chol_tile_ref(A)) <= 1e-10
+    assert not torch.triu(L, 1).any()
+    # in place, as potrf calls it: only the slice is written
+    big = A.clone()
+    outer = _randn((n + 4, n + 6), n, card)
+    outer[2:n + 2, 3:n + 3] = big
+    view = outer[2:n + 2, 3:n + 3]
+    frame = outer.clone()
+    assert chol_tile(view, out=view) is view
+    torch.cuda.synchronize()
+    assert _rel(view, chol_tile_ref(big)) <= 1e-10
+    frame[2:n + 2, 3:n + 3] = view
+    assert torch.equal(outer, frame)
+
+
+@pytest.mark.parametrize("n", [n for n in TILE_NS if n > 1])
+def test_chol_tile_kernel_bad_pivot_gives_nan(card, n):
+    # a non-positive pivot at column k: columns before it finite, NaN from
+    # the pivot on, whichever sub-block and variant it falls in
+    k = n // 2
+    A = _spd_garbage(n, 11, card)
+    A[k, k] = -1.0 if n % 2 else 0.0
+    L = chol_tile(A)
+    torch.cuda.synchronize()
+    assert torch.isfinite(L[:, :k]).all() and torch.isnan(L[k, k])
+    assert torch.isnan(chol_tile_ref(A)).all()
+
+
+def _fill_cache_with_nan(n, card):
+    """Leave a block of n NaNs in the caching allocator, so a following
+    ``new_empty`` of that size starts from garbage, not zeros."""
+    t = torch.full((n,), float("nan"), dtype=torch.float64, device=card)
+    del t
+
+
+@pytest.mark.parametrize("sliced", [True, False])
+@pytest.mark.parametrize("M", [1, 64, 65, 1200])
+@pytest.mark.parametrize("K", [1, 7, 8, 33, 669])
+def test_syrk_ln_kernel_odd_ld_and_offset(card, M, K, sliced):
+    # sliced: ld K + 5 at an odd offset (8-byte copies); else contiguous
+    # (16-byte copies where K is even); c starts from NaN garbage
+    a = (_randn((M + 3, K + 5), M + K, card)[2:M + 2, 1:K + 1] if sliced
+         else _randn((M, K), M + K, card))
+    _fill_cache_with_nan(M * M, card)
+    before = syrk_ln.launches
+    c = syrk_ln(a)
+    torch.cuda.synchronize()
+    assert syrk_ln.launches == before + 1
+    assert _rel(c, syrk_ln_ref(a)) <= 1e-10
+    assert torch.equal(torch.triu(c, 1), torch.zeros_like(c))
+
+
+@pytest.mark.parametrize("M,K", [(1, 3), (65, 1), (200, 64), (300, 128)])
+def test_syrk_ln_sub_kernel_leaves_the_upper_triangle(card, M, K):
+    # c and a as potrf passes them: row and column slices of one matrix
+    base = _randn((M + 1, K + M + 3), M, card)
+    a, c = base[1:, 1:K + 1], base[1:, K + 2:K + 2 + M]
+    c0, frame = c.clone(), base.clone()
+    before = syrk_ln.launches
+    assert syrk_ln_sub(c, a) is c
+    torch.cuda.synchronize()
+    assert syrk_ln.launches == before + 1
+    assert torch.equal(torch.triu(c, 1), torch.triu(c0, 1))
+    want = torch.tril(c0 - a @ a.mT)
+    assert _rel(torch.tril(c), want) <= 1e-10
+    frame[1:, K + 2:K + 2 + M] = c     # nothing outside c was written
+    assert torch.equal(base, frame)
+
+
+@pytest.mark.parametrize("W", [129, 256, 257, 700])
+def test_potrf_on_card_launches_per_step(card, W):
+    # one chol_tile per 128 columns; one trsm_rlt and one subtracting
+    # syrk_ln per step below the last; nothing else
+    A = _spd_garbage(W, W + 1, card)
+    A0 = A.clone()
+    names = ("chol_tile", "trsm_rlt", "syrk_ln", "gemm_nt", "tri_inv_lower")
+    fns = (chol_tile, trsm_rlt, syrk_ln, gemm_nt, tri_inv_lower)
+    before = [f.launches for f in fns]
+    L = ops.potrf(A)
+    torch.cuda.synchronize()
+    steps = -(-W // 128)
+    got = dict(zip(names, (f.launches - b for f, b in zip(fns, before))))
+    assert got == {"chol_tile": steps, "trsm_rlt": steps - 1,
+                   "syrk_ln": steps - 1, "gemm_nt": 0, "tri_inv_lower": 0}
+    assert _rel(L, potrf_ref(A)) <= 1e-10
+    assert not torch.triu(L, 1).any() and torch.equal(A, A0)
+
+
+def test_out_and_subtract_forms_check_their_arguments(card):
+    a = torch.zeros((4, 3), dtype=torch.float64, device=card)
+    c = torch.zeros((4, 4), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError):
+        syrk_ln_sub(c[:3, :3], a)                # c is not (M, M)
+    with pytest.raises(ValueError):
+        syrk_ln_sub(c[:3, :3], a.mT)             # a's columns not contiguous
+    with pytest.raises(ValueError):
+        chol_tile(c, out=c[:3, :3])              # out has another shape
+    with pytest.raises(ValueError):
+        trsm_rlt(c[:3, :3], a, out=c[:, :2])     # out has another shape
 
 
 @pytest.mark.parametrize("m,w", [(1, 1), (70, 64), (137, 200), (5, 130)])
