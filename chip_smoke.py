@@ -41,7 +41,9 @@ card:
 6. holds the guarded fused kernel against its plain version (lap3d_40's
    widest group, its most batched group, and the kkt_saddle_64 groups
    whose lanes clamp; each at thr = 0 and at the perturb threshold) beside
-   the unguarded kernel's time on the same buffers;
+   the unguarded kernel's time on the same buffers, with the (lane, slab)
+   pairs its check routed to the column sweep and its launches traced at
+   both thresholds;
 7. drives the breakdown guard through ``cholesky(guard=...)``: ``raise`` on
    lap3d_40 against ``guard="off"``, and the reference's breakdown suite
    (kkt_saddle_64 under raise, perturb and shift; neumann_64 and gram_400
@@ -188,14 +190,16 @@ def fused_work(g) -> tuple[float, float]:
 
 def fused_launches(Bp: int, Lp: int, Wp: int, guard: bool = False) -> int:
     """Kernel launches of one fused call, from the slab loop of
-    ``csrc/fused_factor_syrk.cu``: the mask pass (and, guarded, the status
-    init), per 64-column slab the panel launch (guarded: the sweep) and,
-    while real columns remain right of the slab, the trailing launch, then
-    the SYRK when Lp > Wp.  The memset of ``u`` is not a kernel."""
+    ``csrc/fused_factor_syrk.cu``: the mask pass (and, guarded, the guard
+    init), per 64-column slab the panel launch (guarded: then the check,
+    which sweeps the lanes it routes) and, while real columns remain right
+    of the slab, the trailing launch, then the SYRK when Lp > Wp.  The
+    memset of ``u`` is not a kernel.  The guarded count does not depend on
+    thr or on how many lanes are swept."""
     nb = min(Wp, 64)
     n = 2 if guard else 1
     for k0 in range(0, Wp, nb):
-        n += 1 + (Wp > k0 + nb)
+        n += 1 + guard + (Wp > k0 + nb)
     return n + (Lp > Wp)
 
 
@@ -887,14 +891,17 @@ def guarded_kernel_phase(plan, kkt_groups, thr_lap: float, thr_kkt: float,
     kkt_saddle_64 groups whose lanes clamp; each at thr = 0 and at the
     matrix's perturb threshold.  fp and u at REL_TOL (NaN where the plain
     version has NaN), status counts and flags equal, min d^2 and magnitude
-    at rtol 1e-10.  The launches and device time are traced once per
-    buffer, at thr = 0 (the launches do not depend on thr)."""
+    at rtol 1e-10.  Each record counts the (lane, slab) pairs the check
+    routed to the column sweep (``guarded_sweeps``); the launches and
+    device time of a call at each thr are traced together against
+    ``fused_launches``."""
     import torch
 
     from repro_torch.kernels.fused import (
         fused_factor_syrk,
         fused_factor_syrk_guarded,
         fused_factor_syrk_guarded_ref,
+        guarded_sweeps,
         live_cells,
     )
 
@@ -920,6 +927,7 @@ def guarded_kernel_phase(plan, kkt_groups, thr_lap: float, thr_kkt: float,
         for thr in (0.0, thr_p):
             fp, u, st = fused_factor_syrk_guarded(p, rows, ws, thr)
             torch.cuda.synchronize()
+            swept = guarded_sweeps()
             fr, ur, sr = fused_factor_syrk_guarded_ref(p, rows, ws, thr)
             afp, efp = nonfinite_err(fp, fr, live_cells(rows, ws, Lp, Wp,
                                                         p.device))
@@ -946,17 +954,25 @@ def guarded_kernel_phase(plan, kkt_groups, thr_lap: float, thr_kkt: float,
             rec = dict(case=label, thr=thr, Bp=Bp, Lp=Lp, Wp=Wp,
                        max_abs_err=max(afp, au), rel_err=max(efp, eu),
                        n_clamped=int(st[:, 1].sum()),
-                       nonfinite_lanes=int(st[:, 2].sum()), ms=ms,
-                       plain_ms=plain_ms, unguarded_ms=unguarded_ms,
+                       nonfinite_lanes=int(st[:, 2].sum()),
+                       swept_lane_slabs=swept,
+                       lane_slabs=int(((ws.long() + min(Wp, 64) - 1)
+                                       // min(Wp, 64)).sum()),
+                       ms=ms, plain_ms=plain_ms, unguarded_ms=unguarded_ms,
                        library_ms=None, bound_ms=bound, bound_by=by,
                        gflop=flops / 1e9)
-            if thr == 0.0:  # the launches do not depend on thr
-                trace = check_launches(
-                    f"fused_factor_syrk_guarded {label}",
-                    lambda: fused_factor_syrk_guarded(p, rows, ws, 0.0),
-                    fused_launches(Bp, Lp, Wp, guard=True))
-            rec.update(trace)
             out.append(rec)
+        # one trace of a call at each thr (one profiler session per buffer:
+        # the tracer has dropped whole sessions when given many more)
+        trace = check_launches(
+            f"fused_factor_syrk_guarded {label}",
+            lambda: [fused_factor_syrk_guarded(p, rows, ws, t)
+                     for t in (0.0, thr_p)],
+            2 * fused_launches(Bp, Lp, Wp, guard=True))
+        for rec in out[-2:]:
+            rec.update(device_launches_per_call=(
+                trace["device_launches_per_call"] // 2),
+                device_ms_both_thr=trace["device_ms"])
             print("kernel fused_factor_syrk_guarded", json.dumps(rec),
                   flush=True)
         del p, fp, u, st, fr, ur, sr
@@ -1166,21 +1182,29 @@ def many_and_plan_phases(mats):
 
 
 def entry_name(line: str) -> str:
-    """The last name of the mangled entry function in a ptxas line
-    (``_ZN<len><namespace><len><name>E...`` gives ``name``)."""
+    """The last name of the mangled entry function in a ptxas or SASS line
+    (``_ZN<len><namespace><len><name>E...`` gives ``name``), with its
+    integer or bool template arguments (``...ILb1EE...`` gives
+    ``name<true>``)."""
     found = re.search(r"_ZN(\w+)", line)
     rest, name = found.group(1) if found else "", "?"
     while rest[:1].isdigit():
         digits = re.match(r"\d+", rest).group()
         n = int(digits)
         name, rest = rest[len(digits):len(digits) + n], rest[len(digits) + n:]
+    targs = re.match(r"I((?:L[a-z]+-?\d+E)+)E", rest)
+    if targs:
+        args = [{"b0": "false", "b1": "true"}.get(t + v, v) for t, v in
+                re.findall(r"L([a-z]+)(-?\d+)E", targs.group(1))]
+        name += "<" + ", ".join(args) + ">"
     return name
 
 
-def sass_dmma(build, names) -> dict:
+def sass_dmma(build, names, must=()) -> dict:
     """The fp64 tensor-core instructions (DMMA.*) in each built library's
-    SASS, from ``cuobjdump -sass`` beside ``nvcc``; raises if a library
-    holds none (the DMMA kernels must not have fallen back to FMAs)."""
+    SASS by function, from ``cuobjdump -sass`` beside ``nvcc``; raises if a
+    library, or a function named in ``must``, holds none (the DMMA kernels
+    must not have fallen back to FMAs)."""
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return {"cuobjdump": "not found"}
@@ -1189,12 +1213,19 @@ def sass_dmma(build, names) -> dict:
         sass = subprocess.run(
             [str(tool), "-sass", str(build.library_path(name))],
             capture_output=True, text=True, check=True, timeout=300).stdout
-        ops: dict = {}
-        for op in re.findall(r"\bDMMA\.[\w.]+", sass):
-            ops[op] = ops.get(op, 0) + 1
-        if not ops:
+        fns: dict = {}
+        for part in re.split(r"\n\s*Function : ", sass)[1:]:
+            ops: dict = {}
+            for op in re.findall(r"\bDMMA\.[\w.]+", part):
+                ops[op] = ops.get(op, 0) + 1
+            if ops:
+                fns[entry_name(part.split("\n", 1)[0])] = ops
+        if not fns:
             raise AssertionError(f"no DMMA instruction in {name}'s SASS")
-        out[name] = ops
+        out[name] = fns
+    for fn in must:
+        if not any(fn in fns for fns in out.values()):
+            raise AssertionError(f"no DMMA instruction in {fn}'s SASS")
     return out
 
 
@@ -1232,7 +1263,8 @@ def main() -> None:
                     print(f"ptxas {name} {kernel}: {line.strip()}")
     print("sass", json.dumps(sass_dmma(_build, (
         "gemm_nt", "fused_factor_syrk", "tri_inv", "trsm_rlt", "chol_tile",
-        "syrk_ln"))), flush=True)
+        "syrk_ln"), must=("panel_kernel<false>", "panel_kernel<true>"))),
+        flush=True)
 
     mats = {}
     for name in ("lap3d_40", "kkt_256"):
@@ -1319,15 +1351,19 @@ def main() -> None:
         "gemm_nt": ("gemm_nt.cu", "gemm.py:32"),
         "fused_factor_syrk_guarded": ("fused_factor_syrk.cu", "fused.py:251"),
     }
-    design = {  # every kernel but the guarded sweep on fp64 tensor cores
+    design = {  # every kernel on fp64 tensor cores (the guarded repair aside)
         "fused_factor_syrk": "redesigned: one panel launch per 64-column "
         "slab (blocked 8-wide factor and doubling inverse of the diagonal "
         "block in shared memory, A21 L11^-T on DMMA) + DMMA trailing "
         "update and SYRK (mma.sync m16n8k8 f64)",
         "gemm_nt": "redesigned: DMMA tile (mma.sync m16n8k8 f64, 8 warps, "
         "cp.async 3-stage ring of 32-deep K chunks)",
-        "fused_factor_syrk_guarded": "one-block column sweep per slab + "
-        "the DMMA trailing update and SYRK",
+        "fused_factor_syrk_guarded": "redesigned: per slab the DMMA panel "
+        "launch, unclamped, keeping pivots, column maxima and a copy; a "
+        "check per lane (finite, positive, 1e-8 and rounding-slack margins "
+        "above thr and the growth floor) that lets the speculative slab "
+        "stand or restores it and sweeps it column by column; then the "
+        "DMMA trailing update and SYRK",
         "tri_inv_lower": "redesigned: 64-wide diagonal blocks inverted in "
         "shared memory (8x8 substitution + DMMA doubling), then recursive "
         "doubling over block sizes, two DMMA tile launches a level (T = "

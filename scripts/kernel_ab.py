@@ -16,7 +16,8 @@ prints one JSON line: CUDA-event mean milliseconds of
   most pad lanes, garbage in its pad cells) and on the two one-panel
   buffers the sequential path passes (the widest supernode, the largest
   tail);
-* the guarded kernel on the largest group (thr = 0);
+* the guarded kernel on the largest group and on the most batched group
+  (Bp = 256), at thr = 0 and at ``lap3d_40``'s perturb threshold;
 * ``gemm_nt`` on that tail's largest RLB block pair and on one 64 x 64
   pair (row slices of the tail, leading dimension w);
 * ``tri_inv_lower`` on the three groups' factored diagonal blocks (the
@@ -34,16 +35,30 @@ prints one JSON line: CUDA-event mean milliseconds of
 
 then the device time and launches of each fused-kernel and
 ``tri_inv_lower`` CUDA function (and of the memsets) in one warm
-``lap3d_40`` factorization and its first device solve, and of every CUDA
-function of the port in one phase (a) run (with its wall seconds), from
-``torch.profiler``.  The inputs come from a seeded generator on the card.
+``lap3d_40`` factorization and its first device solve, of each CUDA
+function in one warm ``guard="raise"`` factorization (the guarded
+kernel's device time), the wall seconds of warm ``guard="off"`` and
+``guard="raise"`` factorizations in turns, and of every CUDA function of
+the port in one phase (a) run (with its wall seconds), from
+``torch.profiler``.  Template instances keep their arguments in the names
+(``panel_kernel<true>``).  The inputs come from a seeded generator on the
+card.
 """
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 from pathlib import Path
+
+
+def fn_name(key: str) -> str:
+    """The function name of a profiler event's key, with its template
+    arguments (``void (anonymous namespace)::panel_kernel<true>(double*,
+    ..., (anonymous namespace)::GuardSlab)`` gives ``panel_kernel<true>``)."""
+    found = re.search(r"::(\w+(?:<[^()]*>)?)\(", key)
+    return found.group(1) if found else key.split("(")[0]
 
 
 def main(tree: str) -> None:
@@ -57,6 +72,7 @@ def main(tree: str) -> None:
         cached_schedule,
         cholesky,
         device_plan,
+        perturb_threshold,
         symbolic_pipeline,
     )
     from repro_torch.kernels import (
@@ -114,6 +130,8 @@ def main(tree: str) -> None:
                key=lambda g: ((g.Lp - g.Wp) / g.Wp, g.Lp))
     padded = max((g for g in groups if g.B < g.Bp),
                  key=lambda g: (g.Bp - g.B, g.Bp * g.Lp * g.Wp))
+    batched = max(groups, key=lambda g: (g.B, g.Lp * g.Wp))
+    thr = perturb_threshold(float(np.max(np.abs(A.diagonal()))))
     out = {"tree": tree, "card": torch.cuda.get_device_name(0)}
     for label, g, garbage in (("largest", largest, False),
                               ("tail_heavy", tail, False),
@@ -130,8 +148,16 @@ def main(tree: str) -> None:
             lambda: tri_inv_lower(L), reps)
         del L
         if label == "largest":
-            out[f"guarded {label} thr 0"] = ms(
-                lambda: fused_factor_syrk(p, r, w, guard=True, thr=0.0), 3)
+            for t in (0.0, thr):
+                out[f"guarded {label} thr {t:.3g}"] = ms(
+                    lambda: fused_factor_syrk(p, r, w, guard=True, thr=t), 3)
+    Bp, Lp, Wp = batched.gidx.shape
+    p, r, w = group([int(x) for x in batched.rows_arr[:Bp]],
+                    [int(x) for x in batched.ws_arr[:Bp]], Lp, Wp, True)
+    for t in (0.0, thr):
+        out[f"guarded most batched ({Bp}, {Lp}, {Wp}) thr {t:.3g}"] = ms(
+            lambda: fused_factor_syrk(p, r, w, guard=True, thr=t), 10)
+    del p, r, w
     wsn = np.diff(sym.super_ptr)
     msn = np.array([x.shape[0] for x in sym.rows]) - wsn
     for label, s_ in (("widest", int(np.argmax(wsn))),
@@ -209,19 +235,52 @@ def main(tree: str) -> None:
     for ev in prof.key_averages():
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0.0))
-        name = ev.key.split("::")[-1].split("(")[0]
+        name = fn_name(ev.key)
         if dev_us <= 0:
             continue
         if "memset" in ev.key.lower():
             memset["ms"] += dev_us / 1e3
             memset["launches"] += ev.count
         for k, names in kernels.items():
-            if name in names:
+            if name.split("<")[0] in names:
                 by[k][name] = {"ms": dev_us / 1e3, "launches": ev.count}
     for k, fns in by.items():
         out[f"lap3d_40 {k} kernel by function"] = fns
         out[f"lap3d_40 {k} kernel ms"] = sum(v["ms"] for v in fns.values())
     out["lap3d_40 memsets"] = memset
+
+    def port_kernels(prof):
+        fns = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0.0))
+            if dev_us > 0 and "anonymous namespace" in ev.key:
+                name = fn_name(ev.key)
+                fns[name] = {"ms": dev_us / 1e3, "launches": ev.count}
+        return fns
+
+    # one warm guard="raise" factorization: the guarded kernel's functions
+    # (the fused kernel's, the guarded panel, the check and sweep, the init)
+    cholesky(A, sym=sym, Aperm=Aperm, guard="raise")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        cholesky(A, sym=sym, Aperm=Aperm, guard="raise")
+        torch.cuda.synchronize()
+    fns = {k: v for k, v in port_kernels(prof).items()
+           if k.split("<")[0] in kernels["fused"] + (
+               "guarded_slab_kernel", "status_init_kernel",
+               "guard_init_kernel")}
+    out["lap3d_40 guard=raise fused kernels by function"] = fns
+    out["lap3d_40 guard=raise fused kernels ms"] = sum(
+        v["ms"] for v in fns.values())
+    walls = {"off": [], "raise": []}
+    for guard in ("off", "raise", "off", "raise"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cholesky(A, sym=sym, Aperm=Aperm, guard=guard)
+        torch.cuda.synchronize()
+        walls[guard].append(time.perf_counter() - t0)
+    out["lap3d_40 warm factor seconds by guard"] = walls
     # phase (a): RL, every supernode on the card, unfused (potrf, trsm_rlt,
     # syrk_ln), warm; then the same run under the profiler
     def phase_a():
@@ -237,13 +296,7 @@ def main(tree: str) -> None:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         phase_a()
-    fns = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0.0))
-        if dev_us > 0 and "anonymous namespace" in ev.key:
-            name = ev.key.split("::")[-1].split("(")[0]
-            fns[name] = {"ms": dev_us / 1e3, "launches": ev.count}
+    fns = port_kernels(prof)
     out["phase (a) kernels by function"] = fns
     out["phase (a) device ms of the port's kernels"] = sum(
         v["ms"] for v in fns.values())

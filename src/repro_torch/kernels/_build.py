@@ -32,7 +32,8 @@ SIGNATURES = {
         "fused_factor_syrk_launch": (
             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
         "fused_factor_syrk_guarded_launch": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _I, _P], _I),
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _I,
+             _P], _I),
         "fused_factor_syrk_error": ([_I], ctypes.c_char_p),
     },
     "tri_inv": {

@@ -78,25 +78,45 @@
 // 159 slabs, so at most 318 slab launches per factorization.
 //
 // Guarded variant (fused_factor_syrk_guarded_launch; replaces the same TPU
-// kernel with guard=True, fused.py:84-198, :293-297, :332-343).  Per real
-// column k the clamp rule needs theta, the largest below-diagonal |entry|
-// of column k at its elimination over the lane's whole live height (rows
-// (k, w) and the tail [Wp, Wp + m)), so the diagonal block can no longer be
-// factored before the rows below it are up to date.  Instead one block per
-// lane (guarded_slab_kernel, GNT threads) sweeps each 64-column slab over
-// the full live height, column by column: reduce d^2 and theta, apply the
-// clamp d2c = max(thr, |d2|, theta^2 GFLOOR_MULT / thr) (thr = 0: detect
-// only), scale the column, then the rank-1 update of the slab's remaining
-// real columns.  It takes the place of panel_kernel for the slab;
-// trailing_kernel and syrk_kernel (on DMMA) are shared, so a guarded slab
-// also costs 2 launches.  The status (min unclamped d^2, n clamped,
-// nonfinite flag, clamp magnitude) lives in st (Bp, 4), initialised to
-// (inf, 0, 0, 0) next to the mask pass and carried from slab to slab; the
-// nonfinite flag is raised as each column's live cells are finalised.  NaN
-// follows jnp: max propagates it (fmax would drop it), ~(d2 >= thr) holds
-// for a NaN pivot, a nonfinite d2c falls back to thr.  One SM sweeps a
-// whole lane, reading the slab through L2, so a wide lane is latency bound;
-// a cooperative version that spreads a lane over many SMs is later work.
+// kernel with guard=True, fused.py:84-198, :293-297, :332-343).  The
+// reference sweeps column by column: per real column k, with d2 its pivot
+// and theta the largest below-diagonal |entry| at its elimination over
+// the lane's live height (rows (k, w) and the tail [Wp, Wp + m)), it
+// clamps d2c = max(thr, |d2|, theta^2 GFLOOR_MULT / thr) when thr > 0 and
+// d2 < thr or d2 < theta^2 GFLOOR_MULT / thr, and keeps the status (min
+// unclamped d^2 NaN-ignoring, n clamped, nonfinite flag, clamp magnitude).
+// Without a clamp the sweep is the unguarded factor, and theta_k is
+// sqrt(x_k) max |L[r][k]| over the rows below k of the unclamped blocked
+// factor.  So each slab runs speculatively, is checked, and is repaired
+// only where needed:
+//   1. panel_kernel<true>: the unguarded panel launch (the blocked DMMA
+//      factor, unclamped), which also keeps the slab's cells as they were
+//      (A11 and the staged row tiles, into cpy), the pivots x before their
+//      rsqrt (tile.cuh's chol8_rsqrt with its pivot out) and per column the
+//      largest |L[r][k]| below the diagonal, folded across blocks with
+//      atomicMax on the bits of |value| (order independent, so
+//      deterministic; NaN ranks above inf, as nan_max propagates it);
+//   2. guarded_slab_kernel: one block per lane checks the slab's real
+//      columns (every x and theta finite, x > 0, and x above thr and the
+//      growth floor by a relative margin of 1e-8 plus an absolute slack
+//      that bounds the two orders' rounding gap over a slab).  A lane that
+//      passes is one the sweep would not clamp, and whose slab is finite:
+//      it folds its pivots into min d^2 and exits.  Any other lane (one
+//      that clamps, a nonpositive or nonfinite pivot, a NaN) is routed: it
+//      restores what the panel launch wrote and sweeps the slab column by
+//      column over its full live height, as the reference does, updating
+//      the status.  So clamp counts and flags are the sweep's, at thr = 0
+//      too (a zero pivot gives 0 through sqrt and NaN through rsqrt);
+//   3. the trailing launch, shared with the unguarded kernel.
+// The status starts at (inf, 0, 0, 0) in guard_init_kernel (which also
+// zeroes the column maxima), beside the mask pass.  Launches: the mask
+// pass, the init, per slab the panel, the check and (while real columns
+// remain right of the slab) the trailing launch, then the SYRK, at any
+// thr.  A lane that never routes costs row 1's work plus the copy (one
+// store of each staged cell) and a check that exits; a routed slab costs
+// the sweep: one SM per lane, reading the slab through L2, latency bound
+// on a wide lane.  Spreading a routed wide lane over many SMs is later
+// work.
 //
 // Bound on this card: the work is O(w^3/3 + m w^2 + m^2 w) flops per lane
 // against O(Lp Wp + (Lp-Wp)^2) bytes, far above the H100's ~20 flops/byte
@@ -128,6 +148,31 @@ static_assert(PSZ >= NSB * SB * DS, "the 8 x 8 inverses share P");
 // L11, its inverse and a row tile (rows of PLD), the 8 x 8 inverses and
 // then the doubling's products: 113,664 bytes, so two blocks fit an SM
 constexpr int PANEL_SMEM = (3 * NB * PLD + PSZ) * (int)sizeof(double);
+// the guarded instantiation adds the block's column maxima (64 x 8 bytes)
+constexpr int PANEL_SMEM_G = PANEL_SMEM + NB * (int)sizeof(double);
+
+// The guarded panel launch's scratch for one slab (the wrapper allocates
+// it; unused by the unguarded instantiation): per lane and slab column
+// the pivot x before its rsqrt and the largest |L[r][k]| below the
+// diagonal (as the bits of |value|, so atomicMax orders them, NaN above
+// inf), and the slab's columns of every row the launch reads, as they
+// were before it (row r of lane b at cpy[(b Lp + r) nb]).
+struct GuardSlab {
+  double* piv;
+  unsigned long long* thm;
+  double* cpy;
+  int nb;
+};
+
+// |v| as ordered bits: the unsigned order of the bits of a nonnegative
+// double is its numeric order, with NaN above inf
+__device__ __forceinline__ unsigned long long abs_bits(double v) {
+  return (unsigned long long)__double_as_longlong(v) & 0x7fffffffffffffffULL;
+}
+__device__ __forceinline__ unsigned long long umax64(unsigned long long a,
+                                                     unsigned long long b) {
+  return a > b ? a : b;
+}
 
 __global__ void mask_kernel(const double* __restrict__ in,
                             double* __restrict__ fp,
@@ -162,11 +207,16 @@ __device__ __forceinline__ bool tile_live(int r0, int r1, int w, int m,
 // launches.  Block bx takes the lane's 64-row tiles bx, bx + nbl, ...  Each
 // block factors and inverts the slab's diagonal block, then solves its
 // tiles, X = A21 L11^-T on DMMA.  cnt counts this slab's blocks per lane;
-// the last to count writes L11 back.
+// the last to count writes L11 back.  The guarded instantiation (G) also
+// keeps the slab as it was in g.cpy (each block its staged row tiles, the
+// last block A11, from shared memory before factoring it), the last block
+// writes the pivots to g.piv, and every block folds max |L[r][k]| over its
+// rows below k into g.thm.
+template <bool G>
 __global__ void __launch_bounds__(PNT)
     panel_kernel(double* __restrict__ fp, const int* __restrict__ rows,
                  const int* __restrict__ ws, int* __restrict__ cnt, int Lp,
-                 int Wp, int k0, int nbk, int nbl) {
+                 int Wp, int k0, int nbk, int nbl, GuardSlab g) {
   const int b = blockIdx.x / nbl, bx = blockIdx.x - b * nbl;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
@@ -192,6 +242,10 @@ __global__ void __launch_bounds__(PNT)
   double* X = Li + NB * PLD;    // a row tile of A21
   double* D = X + NB * PLD;     // inverses of the 8 x 8 diagonal blocks
   double* P = D;                // then the products of the doubling
+  // G: the block's max |L[r][k]| per slab column, as bits
+  unsigned long long* cmax = (unsigned long long*)(P + PSZ);
+  if constexpr (G)
+    for (int c = tid; c < NB; c += PNT) cmax[c] = 0ULL;
   auto stage_tile = [&](int t) {
     const int r0 = k1 + t * DT;
     const double* A21 = panel + (size_t)r0 * Wp + k0;
@@ -218,6 +272,15 @@ __global__ void __launch_bounds__(PNT)
     last = atomicAdd(cnt + b, 1) == nbl - 1;
   }
   __syncthreads();
+  if constexpr (G) {
+    if (last) {  // A11 as it was, for the sweep to restore
+      for (int e = tid; e < nbk * nbk; e += PNT) {
+        const int i = e / nbk, p = e - i * nbk;
+        g.cpy[((size_t)b * Lp + k0 + i) * g.nb + p] = L[i * PLD + p];
+      }
+      __syncthreads();
+    }
+  }
   // Blocked right-looking Cholesky of L in 8-wide sub-blocks.  A pivot x
   // gives r = rsqrt(x), L[k][k] = x r and the column below scaled by r, so
   // the sweep has no division; a pivot <= 0 gives NaN, as sqrt does.
@@ -232,7 +295,14 @@ __global__ void __launch_bounds__(PNT)
     double a[SB], rq[SB];
 #pragma unroll
     for (int p = 0; p < SB; ++p) a[p] = L[(j0 + i) * PLD + j0 + p];
-    chol8_rsqrt(a, rq, i);
+    if constexpr (G) {
+      double xi;
+      chol8_rsqrt(a, rq, i, xi);
+      if (last && lane < SB && j0 + lane < nbk)
+        g.piv[(size_t)b * g.nb + j0 + lane] = xi;
+    } else {
+      chol8_rsqrt(a, rq, i);
+    }
     // column c = i of DJ = L_JJ^-1 by forward substitution, with the rows
     // of L_JJ read from their lanes:
     //   x[r] = (d_rc - sum_{p<r} L[r][p] x[p]) / L[r][r]
@@ -341,8 +411,14 @@ __global__ void __launch_bounds__(PNT)
     }
     cp_async_wait<0>();
     __syncthreads();
+    if constexpr (G)  // the tile as it was, for the sweep to restore
+      for (int e = tid; e < (r1 - r0) * nbk; e += PNT) {
+        const int rr = e / nbk, c = e - rr * nbk;
+        g.cpy[((size_t)b * Lp + r0 + rr) * g.nb + c] = X[rr * PLD + c];
+      }
     double acc[2][4][4] = {};
     dmma_smem<4>(X, PLD, Li, PLD, NB, acc);
+    unsigned long long mx[4][2] = {};
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -350,9 +426,27 @@ __global__ void __launch_bounds__(PNT)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = r0 + dmma_row<4>(i, e), c = dmma_col<4>(j, e);
-          if (r < r1 && c < nbk)
+          if (r < r1 && c < nbk) {
             panel[(size_t)r * Wp + k0 + c] = acc[i][j][e];
+            if constexpr (G)
+              mx[j][e & 1] = umax64(mx[j][e & 1], abs_bits(acc[i][j][e]));
+          }
         }
+    if constexpr (G) {
+      // the lanes of one t = lane % 4 hold the same 8 columns: reduce over
+      // g = lane / 4, then one lane per column folds it into cmax
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1)
+            mx[j][h] = umax64(mx[j][h],
+                              __shfl_xor_sync(0xffffffffu, mx[j][h], off));
+          if (lane < 4 && mx[j][h]) atomicMax(cmax + dmma_col<4>(j, h),
+                                              mx[j][h]);
+        }
+    }
     __syncthreads();  // X is restaged for the next tile
   }
   if (last) {
@@ -361,6 +455,18 @@ __global__ void __launch_bounds__(PNT)
       const int i = e / nbk, p = e % nbk;
       panel[(size_t)(k0 + i) * Wp + k0 + p] = p <= i ? L[i * PLD + p] : 0.0;
     }
+    if constexpr (G) {  // L11's column maxima: two threads a column
+      const int p = tid & (NB - 1);
+      unsigned long long m = 0ULL;
+      for (int i = p + 1 + tid / NB; i < nbk; i += PNT / NB)
+        m = umax64(m, abs_bits(L[i * PLD + p]));
+      if (m) atomicMax(cmax + p, m);
+    }
+  }
+  if constexpr (G) {
+    __syncthreads();
+    for (int c = tid; c < nbk; c += PNT)
+      if (cmax[c]) atomicMax(g.thm + (size_t)b * g.nb + c, cmax[c]);
   }
 }
 
@@ -431,6 +537,15 @@ __global__ void __launch_bounds__(DNT)
 // guarded variant
 // ---------------------------------------------------------------------------
 constexpr int GNT = 512;  // threads of the guarded sweep (one block a lane)
+// The check's margins: a pivot x passes only ROUTE_DELTA (relative) above
+// thr and above the growth floor, plus ROUTE_SLACK (|pre| + |x|), pre the
+// column's diagonal before the slab.  The slack bounds the rounding gap
+// between the blocked factor's x and the column sweep's: each sums at most
+// NB products, within about NB eps (|pre| + s) of exact, s the slab's sum
+// of squares of the row, and s <= |pre| + |x|.  Both are far below any
+// clamp that matters.
+constexpr double ROUTE_DELTA = 1e-8;
+constexpr double ROUTE_SLACK = 4.0 * NB * 2.220446049250313e-16;
 
 // NaN-propagating max, as jnp.max / jnp.maximum (fmax drops NaN)
 __device__ __forceinline__ double nan_max(double a, double b) {
@@ -439,14 +554,20 @@ __device__ __forceinline__ double nan_max(double a, double b) {
   return a > b ? a : b;
 }
 
-__global__ void status_init_kernel(double* __restrict__ st, int Bp) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b < Bp) {
+// The status (inf, 0, 0, 0) of every lane, and the zeroed column maxima of
+// every slab.
+__global__ void guard_init_kernel(double* __restrict__ st, int Bp,
+                                  unsigned long long* __restrict__ thm,
+                                  long long nthm) {
+  const long long first = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long b = first; b < Bp; b += step) {
     st[4 * b + 0] = CUDART_INF;
     st[4 * b + 1] = 0.0;
     st[4 * b + 2] = 0.0;
     st[4 * b + 3] = 0.0;
   }
+  for (long long i = first; i < nthm; i += step) thm[i] = 0ULL;
 }
 
 // Row of the i-th live row strictly below column k: [k+1, w), then the
@@ -455,18 +576,77 @@ __device__ __forceinline__ int live_row(int i, int nd, int k, int Wp) {
   return i < nd ? k + 1 + i : Wp + (i - nd);
 }
 
-__global__ void guarded_slab_kernel(double* __restrict__ fp,
-                                    const int* __restrict__ rows,
-                                    const int* __restrict__ ws,
-                                    double* __restrict__ st, int Lp, int Wp,
-                                    int k0, int nbk, double thr, double gf) {
+// One block per lane, after the slab's guarded panel launch.  The check:
+// warp 0 reads the slab's real columns' pivots x and maxima, theta = sqrt(x)
+// max |L[r][k]| (the column's largest unscaled entry below the diagonal),
+// and passes the lane when every x and theta is finite, x > 0, and x clears
+// thr and the growth floor theta^2 gf / thr by the margins above (at thr =
+// 0 only the slack): then the column sweep would clamp nothing either, and
+// the speculative factor stands; the lane folds its pivots into min d^2 and
+// exits (every value it wrote is finite).  Otherwise the lane is routed:
+// its panel counter is set to -1 (the wrapper's record of the sweeps), the
+// cells the panel launch wrote are restored from g.cpy (A11 and every row
+// tile with a live row, all nbk columns, so a pad cell the speculative
+// factor made NaN is undone too), and the slab is swept column by column
+// over the full live height: reduce d^2 and theta, clamp d2c = max(thr,
+// |d2|, theta^2 gf / thr) (thr = 0: detect only), scale the column, then
+// the rank-1 update of the slab's remaining real columns.
+__global__ void __launch_bounds__(GNT)
+    guarded_slab_kernel(double* __restrict__ fp, const int* __restrict__ rows,
+                        const int* __restrict__ ws, double* __restrict__ st,
+                        int* __restrict__ cnt, GuardSlab g, int Lp, int Wp,
+                        int k0, int nbk, double thr, double gf) {
   const int b = blockIdx.x, tid = threadIdx.x;
   const int w = ws[b];
   if (w <= k0) return;  // identity slab: nothing to factor, no status
-  const int m = min(rows[b] - w, Lp - Wp);  // tail rows stop at Lp
   const int k1 = min(k0 + nbk, w);  // the slab's real columns
   double* panel = fp + (size_t)b * Lp * Wp;
   double* s = st + 4 * b;
+  const double* piv = g.piv + (size_t)b * g.nb;
+  const double* cpy = g.cpy + (size_t)b * Lp * g.nb;
+  __shared__ int route;
+  if (tid < 32) {
+    bool bad = false;
+    for (int k = k0 + tid; k < k1; k += 32) {
+      const double x = piv[k - k0];
+      const double theta =
+          sqrt(x) * __longlong_as_double(
+                        (long long)g.thm[(size_t)b * g.nb + k - k0]);
+      const double pre = cpy[(size_t)k * g.nb + k - k0];
+      const double slack = ROUTE_SLACK * (fabs(pre) + fabs(x));
+      bool ok = isfinite(x) && isfinite(theta) && x > 0.0 &&
+                x >= thr * (1.0 + ROUTE_DELTA) + slack;
+      if (thr > 0.0)
+        ok = ok &&
+             x >= theta * theta * (gf / thr) * (1.0 + ROUTE_DELTA) + slack;
+      bad = bad || !ok;
+    }
+    bad = __any_sync(0xffffffffu, bad);
+    if (tid == 0) route = bad;
+  }
+  __syncthreads();
+  if (!route) {  // the speculative factor stands
+    if (tid == 0) {
+      double mind2 = s[0];
+      for (int k = k0; k < k1; ++k)
+        if (piv[k - k0] < mind2) mind2 = piv[k - k0];
+      s[0] = mind2;
+    }
+    return;
+  }
+  if (tid == 0) cnt[b] = -1;
+  {  // restore what the panel launch wrote: A11 and the live row tiles
+    const int kp = k0 + nbk, mf = rows[b] - w;
+    for (int e = tid; e < (Lp - k0) * nbk; e += GNT) {
+      const int r = k0 + e / nbk, c = e - (e / nbk) * nbk;
+      if (r >= kp) {
+        const int r0 = kp + (r - kp) / DT * DT;
+        if (!tile_live(r0, min(r0 + DT, Lp), w, mf, Wp)) continue;
+      }
+      panel[(size_t)r * Wp + k0 + c] = cpy[(size_t)r * g.nb + c];
+    }
+  }
+  const int m = min(rows[b] - w, Lp - Wp);  // tail rows stop at Lp
   __shared__ double red[GNT / 32];
   __shared__ double colk[NB];  // scaled column k at rows (k, k1)
   __shared__ double sh_dk;
@@ -546,7 +726,10 @@ static cudaError_t prepare(int device, int* sms) {
     return cudaSuccess;
   }
   const auto attr = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err = cudaFuncSetAttribute(panel_kernel, attr, PANEL_SMEM);
+  cudaError_t err = cudaFuncSetAttribute(panel_kernel<false>, attr,
+                                         PANEL_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(panel_kernel<true>, attr, PANEL_SMEM_G);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(trailing_kernel, attr, DMMA_SMEM_BYTES);
   if (err == cudaSuccess)
@@ -610,24 +793,29 @@ static int mask_blocks(long long total) {
   return (int)(want < 132LL * 32 ? (want > 0 ? want : 1) : 132LL * 32);
 }
 
-// panels, fp: (Bp, Lp, Wp) fp64; u: (Bp, Lp-Wp, Lp-Wp) fp64 (may be null
-// when Lp == Wp); rows, ws: (Bp,) int32; cnt: (ceil(Wp / min(Wp, 64)) * Bp)
-// int32 scratch, the panel launches' per-(slab, lane) counters.  Returns a
-// cudaError_t code.
-extern "C" int fused_factor_syrk_launch(const double* panels, const int* rows,
-                                        const int* ws, double* fp, double* u,
-                                        int* cnt, int Bp, int Lp, int Wp,
-                                        int device, void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
+// The slab loop of both entry points.  G: the guarded route, with the
+// status st, thr, gf and the scratch gs and cpy (see the guarded entry).
+template <bool G>
+static int launch(const double* panels, const int* rows, const int* ws,
+                  double* fp, double* u, int* cnt, double* st, double* gs,
+                  double* cpy, int Bp, int Lp, int Wp, double thr, double gf,
+                  int device, cudaStream_t stream) {
   CHECK(cudaSetDevice(device));
   int sms = 0;
   CHECK(prepare(device, &sms));
   const int nb = Wp < NB ? Wp : NB;
   const int nslab = (Wp + nb - 1) / nb;
   const long long total = (long long)Bp * Lp * Wp;
+  const long long nscr = (long long)nslab * Bp * nb;
+  unsigned long long* thm = G ? (unsigned long long*)(gs + nscr) : nullptr;
   mask_kernel<<<mask_blocks(total), ENT, 0, stream>>>(
       panels, fp, rows, ws, cnt, nslab * Bp, Lp, Wp, total);
   CHECK(cudaGetLastError());
+  if constexpr (G) {
+    guard_init_kernel<<<mask_blocks(nscr > Bp ? nscr : Bp), ENT, 0,
+                        stream>>>(st, Bp, thm, nscr);
+    CHECK(cudaGetLastError());
+  }
   const int mp = Lp - Wp;
   if (mp > 0)
     CHECK(cudaMemsetAsync(u, 0, sizeof(double) * (size_t)Bp * mp * mp,
@@ -639,44 +827,48 @@ extern "C" int fused_factor_syrk_launch(const double* panels, const int* rows,
     const int nrt = (Lp - k1 + DT - 1) / DT;
     const int nbl = panel_blocks(nrt, Bp, sms);
     CHECK(lane_grid(nbl, Bp));
-    panel_kernel<<<nbl * Bp, PNT, PANEL_SMEM, stream>>>(
-        fp, rows, ws, cnt + (size_t)s * Bp, Lp, Wp, k0, nbk, nbl);
+    const size_t off = (size_t)s * Bp * nb;
+    const GuardSlab g =
+        G ? GuardSlab{gs + off, thm + off, cpy, nb} : GuardSlab{};
+    panel_kernel<G><<<nbl * Bp, PNT, G ? PANEL_SMEM_G : PANEL_SMEM,
+                      stream>>>(fp, rows, ws, cnt + (size_t)s * Bp, Lp, Wp,
+                                k0, nbk, nbl, g);
     CHECK(cudaGetLastError());
+    if constexpr (G) {
+      guarded_slab_kernel<<<Bp, GNT, 0, stream>>>(
+          fp, rows, ws, st, cnt + (size_t)s * Bp, g, Lp, Wp, k0, nbk, thr,
+          gf);
+      CHECK(cudaGetLastError());
+    }
     CHECK(trailing(fp, rows, ws, Bp, Lp, Wp, k0, nbk, stream));
   }
   return syrk(fp, u, rows, ws, Bp, Lp, Wp, stream);
 }
 
-// As fused_factor_syrk_launch, plus st: (Bp, 4) fp64 per-lane status, and
-// the clamp threshold thr (0: detect only) with gf = GFLOOR_MULT.
+// panels, fp: (Bp, Lp, Wp) fp64; u: (Bp, Lp-Wp, Lp-Wp) fp64 (may be null
+// when Lp == Wp); rows, ws: (Bp,) int32; cnt: (ceil(Wp / min(Wp, 64)) * Bp)
+// int32 scratch, the panel launches' per-(slab, lane) counters.  Returns a
+// cudaError_t code.
+extern "C" int fused_factor_syrk_launch(const double* panels, const int* rows,
+                                        const int* ws, double* fp, double* u,
+                                        int* cnt, int Bp, int Lp, int Wp,
+                                        int device, void* stream) {
+  return launch<false>(panels, rows, ws, fp, u, cnt, nullptr, nullptr,
+                       nullptr, Bp, Lp, Wp, 0.0, 0.0, device,
+                       (cudaStream_t)stream);
+}
+
+// As fused_factor_syrk_launch, plus st: (Bp, 4) fp64 per-lane status, the
+// clamp threshold thr (0: detect only) with gf = GFLOOR_MULT, and the
+// scratch: gs (2 nslab Bp nb) fp64, the pivots then the column maxima of
+// each slab, and cpy (Bp, Lp, nb) fp64, nb = min(Wp, 64).  After the call
+// cnt[s Bp + b] is -1 where lane b took the column sweep on slab s.
 extern "C" int fused_factor_syrk_guarded_launch(
     const double* panels, const int* rows, const int* ws, double* fp,
-    double* u, double* st, int Bp, int Lp, int Wp, double thr, double gf,
-    int device, void* stream_) {
-  cudaStream_t stream = (cudaStream_t)stream_;
-  CHECK(cudaSetDevice(device));
-  int sms = 0;
-  CHECK(prepare(device, &sms));
-  const long long total = (long long)Bp * Lp * Wp;
-  mask_kernel<<<mask_blocks(total), ENT, 0, stream>>>(panels, fp, rows, ws,
-                                                     nullptr, 0, Lp, Wp,
-                                                     total);
-  CHECK(cudaGetLastError());
-  status_init_kernel<<<(Bp + ENT - 1) / ENT, ENT, 0, stream>>>(st, Bp);
-  CHECK(cudaGetLastError());
-  const int mp = Lp - Wp;
-  if (mp > 0)
-    CHECK(cudaMemsetAsync(u, 0, sizeof(double) * (size_t)Bp * mp * mp,
-                          stream));
-  const int nb = Wp < NB ? Wp : NB;
-  for (int k0 = 0; k0 < Wp; k0 += nb) {
-    const int nbk = nb < Wp - k0 ? nb : Wp - k0;
-    guarded_slab_kernel<<<Bp, GNT, 0, stream>>>(fp, rows, ws, st, Lp, Wp, k0,
-                                                nbk, thr, gf);
-    CHECK(cudaGetLastError());
-    CHECK(trailing(fp, rows, ws, Bp, Lp, Wp, k0, nbk, stream));
-  }
-  return syrk(fp, u, rows, ws, Bp, Lp, Wp, stream);
+    double* u, double* st, int* cnt, double* gs, double* cpy, int Bp, int Lp,
+    int Wp, double thr, double gf, int device, void* stream) {
+  return launch<true>(panels, rows, ws, fp, u, cnt, st, gs, cpy, Bp, Lp, Wp,
+                      thr, gf, device, (cudaStream_t)stream);
 }
 
 extern "C" const char* fused_factor_syrk_error(int code) {

@@ -304,12 +304,15 @@ __device__ __forceinline__ void dmma_tile_nn(const double* A, int lda,
 // x rq[q] and the column below scaled by rq[q] -- no division; a pivot
 // <= 0 gives NaN, as sqrt does -- then the update of the columns right of
 // q, each row of the column read from its lane.  All 32 lanes call it (the
-// 8-wide factors of the fused panel kernel and of chol_tile.cu).
+// 8-wide factors of the fused panel kernel and of chol_tile.cu).  The form
+// with xi also gives lane i the pivot x of column i, before its rsqrt (the
+// guarded panel kernel's status and check).
 __device__ __forceinline__ void chol8_rsqrt(double (&a)[8], double (&rq)[8],
-                                            int i) {
+                                            int i, double& xi) {
 #pragma unroll
   for (int q = 0; q < 8; ++q) {
     const double x = __shfl_sync(0xffffffffu, a[q], q);
+    if (i == q) xi = x;
     rq[q] = rsqrt(x);
     a[q] = i == q ? x * rq[q] : (i > q ? a[q] * rq[q] : 0.0);
 #pragma unroll
@@ -318,6 +321,11 @@ __device__ __forceinline__ void chol8_rsqrt(double (&a)[8], double (&rq)[8],
       if (i >= p) a[p] -= a[q] * lpq;
     }
   }
+}
+__device__ __forceinline__ void chol8_rsqrt(double (&a)[8], double (&rq)[8],
+                                            int i) {
+  double xi;
+  chol8_rsqrt(a, rq, i, xi);
 }
 
 // ---------------------------------------------------------------------------

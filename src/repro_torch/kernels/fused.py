@@ -214,6 +214,8 @@ def fused_factor_syrk(panels: torch.Tensor, rows: torch.Tensor,
     Bp, Lp, Wp = panels.shape
     fp = torch.empty_like(panels)
     u = panels.new_empty((Bp, Lp - Wp, Lp - Wp))
+    if Bp == 0:  # nothing to launch: the plain version's empty outputs
+        return fp, u
     # the panel launches' per-(slab, lane) counters, zeroed by the kernel
     nslab = -(-Wp // min(Wp, 64))
     cnt = torch.empty(nslab * Bp, dtype=torch.int32, device=panels.device)
@@ -238,9 +240,12 @@ def fused_factor_syrk_guarded(panels: torch.Tensor, rows: torch.Tensor,
     ``STATUS_COLS`` names them.  ``thr`` is fp64 (the reference's Pallas
     route ships it as a float32, its xla chain keeps fp64; the port follows
     the chain).  On a CUDA tensor it launches the guarded kernel of
-    ``csrc/fused_factor_syrk.cu``; on a CPU tensor it runs
+    ``csrc/fused_factor_syrk.cu`` (each slab factored speculatively on the
+    unguarded route, checked, and swept column by column only in the lanes
+    that need it); on a CPU tensor it runs
     ``fused_factor_syrk_guarded_ref``.  ``fused_factor_syrk_guarded.launches``
-    counts the launches."""
+    counts the launches; after a card call, ``guarded_sweeps()`` counts the
+    (lane, slab) pairs that took the sweep."""
     thr = float(thr)
     if not (thr >= 0.0 and thr < float("inf")):
         raise ValueError(f"thr must be finite and >= 0, got {thr}")
@@ -253,15 +258,35 @@ def fused_factor_syrk_guarded(panels: torch.Tensor, rows: torch.Tensor,
     fp = torch.empty_like(panels)
     u = panels.new_empty((Bp, Lp - Wp, Lp - Wp))
     st = panels.new_empty((Bp, STATUS_COLS))
+    if Bp == 0:  # nothing to launch: the plain version's empty outputs
+        return fp, u, st
+    nb = min(Wp, 64)
+    nslab = -(-Wp // nb)
+    # per (slab, lane): the panel counters (-1 after the call where the lane
+    # took the sweep), the pivots and column maxima, and one slab's copy
+    cnt = torch.empty(nslab * Bp, dtype=torch.int32, device=panels.device)
+    gs = panels.new_empty(2 * nslab * Bp * nb)
+    cpy = panels.new_empty((Bp, Lp, nb))
     lib = _build.load("fused_factor_syrk")
     rc = lib.fused_factor_syrk_guarded_launch(
         panels.data_ptr(), rows.data_ptr(), ws.data_ptr(), fp.data_ptr(),
-        u.data_ptr(), st.data_ptr(), Bp, Lp, Wp, thr, GFLOOR_MULT,
-        panels.device.index, _build.stream(panels.device))
+        u.data_ptr(), st.data_ptr(), cnt.data_ptr(), gs.data_ptr(),
+        cpy.data_ptr(), Bp, Lp, Wp, thr, GFLOOR_MULT, panels.device.index,
+        _build.stream(panels.device))
     _build.check(lib, "fused_factor_syrk_error", rc,
                  "fused_factor_syrk_guarded")
     fused_factor_syrk_guarded.launches += 1
+    fused_factor_syrk_guarded.counters = cnt
     return fp, u, st
 
 
 fused_factor_syrk_guarded.launches = 0
+fused_factor_syrk_guarded.counters = None
+
+
+def guarded_sweeps() -> int:
+    """The (lane, slab) pairs of the last card call of the guarded kernel
+    that failed the check and took the column sweep (its counters hold -1
+    there); 0 before any card call.  Synchronises with the card."""
+    cnt = fused_factor_syrk_guarded.counters
+    return 0 if cnt is None else int((cnt < 0).sum())

@@ -678,3 +678,155 @@ def test_cholesky_many_on_card_matches_cpu(card):
     assert np.abs(xd.cpu().numpy() - x).max() <= 1e-12 * np.abs(x).max()
     for i, Ai in enumerate(As):
         assert np.linalg.norm(Ai @ x[i] - b[i]) <= 1e-10 * np.linalg.norm(b[i])
+
+
+# ---------------------------------------------------------------------------
+# the guarded route: speculative slabs, the check, the sweep where needed
+# ---------------------------------------------------------------------------
+def _swept_map(Bp, Wp):
+    """(nslab, Bp) bool of the last guarded card call: the (slab, lane)
+    pairs that took the column sweep."""
+    from repro_torch.kernels.fused import fused_factor_syrk_guarded as g
+
+    nslab = -(-Wp // min(Wp, 64))
+    return (g.counters.view(nslab, Bp) < 0).cpu().numpy()
+
+
+def _decoupled_lane(extents, Lp, Wp, seed, k, d2):
+    """``_group`` with tails of half the size (so no column meets the
+    growth floor at a perturb threshold) and lane 0's column k decoupled
+    (zero off the diagonal, in the diagonal block and the tail), so its
+    pivot is exactly d2."""
+    p, rows, ws = _group(extents, Lp, Wp, seed)
+    p[:, Wp:] *= 0.5
+    w = ws[0]
+    p[0, k, :k] = 0.0
+    p[0, k + 1:w, k] = 0.0
+    p[0, Wp:, k] = 0.0
+    p[0, k, k] = d2
+    return p, rows, ws
+
+
+def _hold_guarded(p, rows, ws, thr, card):
+    p, rows, ws = (torch.from_numpy(a).to(card) for a in (p, rows, ws))
+    Bp, Lp, Wp = p.shape
+    fp, u, st = fused_factor_syrk_guarded(p, rows, ws, thr)
+    torch.cuda.synchronize()
+    fr, ur, sr = fused_factor_syrk_guarded_ref(p, rows, ws, thr)
+    assert torch.equal(st[:, 1:3], sr[:, 1:3])
+    assert torch.allclose(st[:, [0, 3]], sr[:, [0, 3]], rtol=1e-10, atol=0)
+    _same_nonfinite_and_close(fp, fr, 1e-10, live_cells(rows, ws, Lp, Wp,
+                                                        card))
+    _same_nonfinite_and_close(u, ur, 1e-10)
+    return st, _swept_map(Bp, Wp)
+
+
+def test_guarded_kernel_repairs_only_the_clamping_slab(card):
+    # lane 0 clamps in its third slab only (a decoupled pivot at thr / 2):
+    # slabs 1-2 stand as factored speculatively, slab 3 is swept
+    thr = 5.46e-12
+    p, rows, ws = _decoupled_lane([(300, 170), (250, 130), (0, 0)], 336, 192,
+                                  3, 150, thr / 2)
+    st, swept = _hold_guarded(p, rows, ws, thr, card)
+    assert st[0, 1] == 1 and st[1, 1] == 0
+    assert swept.tolist() == [[False, False, False], [False, False, False],
+                              [True, False, False]]
+
+
+@pytest.mark.parametrize("sign", [-1.0, 1.0])
+def test_guarded_kernel_near_margin_pivot(card, sign):
+    # a pivot at thr (1 -/+ 1e-10): clamped (-) or kept (+) by the sweep,
+    # routed to it by the check's margin either way
+    thr = 5.46e-12
+    p, rows, ws = _decoupled_lane([(260, 150), (200, 120)], 288, 160, 4, 70,
+                                  thr * (1.0 + sign * 1e-10))
+    st, swept = _hold_guarded(p, rows, ws, thr, card)
+    assert st[0, 1] == (1 if sign < 0 else 0)
+    assert swept.tolist() == [[False, False], [True, False], [False, False]]
+
+
+@pytest.mark.parametrize("thr", [0.0, 1e-3])
+def test_guarded_kernel_spd_group_takes_no_sweep(card, thr):
+    # an SPD group passes every check: the factor is the unguarded
+    # kernel's, bit for bit, and no (lane, slab) is swept
+    p, rows, ws = (torch.from_numpy(a).to(card) for a in _group(
+        [(600, 190), (300, 130), (64, 64), (0, 0)], 640, 192, 5))
+    fp, u, st = fused_factor_syrk_guarded(p, rows, ws, thr)
+    f0, u0 = fused_factor_syrk(p, rows, ws)
+    torch.cuda.synchronize()
+    assert not _swept_map(4, 192).any()
+    assert torch.equal(fp, f0) and torch.equal(u, u0)
+    fr, ur, sr = fused_factor_syrk_guarded_ref(p, rows, ws, thr)
+    assert torch.equal(st[:, 1:3], sr[:, 1:3])
+    assert torch.allclose(st[:, [0, 3]], sr[:, [0, 3]], rtol=1e-10, atol=0)
+
+
+@pytest.mark.parametrize("thr", [0.0, 1e-3])
+def test_guarded_kernel_many_narrow_lanes(card, thr):
+    # 70,000 narrow lanes (past the grid's y limit), some breaking: the
+    # check and the sweep take one block per lane
+    Bp, Lp, Wp = 70_000, 20, 8
+    rng = np.random.default_rng(71)
+    ws = rng.integers(0, Wp + 1, Bp).astype(np.int32)
+    rows = np.where(ws > 0, ws + rng.integers(0, Lp - Wp + 1, Bp),
+                    0).astype(np.int32)
+    G = rng.standard_normal((Bp, Wp, Wp))
+    p = rng.standard_normal((Bp, Lp, Wp))
+    p[:, :Wp] = G @ G.transpose(0, 2, 1) / Wp + 2 * np.eye(Wp)
+    p[::97, 3, 3] = -1.0                       # some indefinite lanes
+    st, swept = _hold_guarded(p, rows, ws, thr, card)
+    assert swept[0].sum() == ((ws[::97] > 3).sum())
+
+
+def test_guarded_wrapper_launches_and_arguments(card):
+    p, rows, ws = (torch.from_numpy(a).to(card) for a in _group(
+        [(300, 100), (150, 64), (200, 90)], 320, 128, 6))
+    for thr in (0.0, 1e-3):
+        before = (fused_factor_syrk.launches,
+                  fused_factor_syrk_guarded.launches)
+        fused_factor_syrk(p, rows, ws, guard=True, thr=thr)
+        torch.cuda.synchronize()
+        assert (fused_factor_syrk.launches,
+                fused_factor_syrk_guarded.launches) == (before[0],
+                                                        before[1] + 1)
+    # a lane view that is not contiguous is refused, as by the unguarded
+    # kernel
+    for guard in (False, True):
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_factor_syrk(p[::2], rows[::2].contiguous(),
+                              ws[::2].contiguous(), guard=guard)
+        with pytest.raises(ValueError, match="contiguous"):
+            fused_factor_syrk(p[:, :, :64], rows, ws, guard=guard)
+    # no lanes: empty outputs, as on the CPU, and no launch
+    e = p[:0]
+    n = fused_factor_syrk_guarded.launches
+    fp, u, st = fused_factor_syrk(e, rows[:0], ws[:0], guard=True, thr=1e-3)
+    f0, u0 = fused_factor_syrk(e, rows[:0], ws[:0])
+    assert fused_factor_syrk_guarded.launches == n
+    assert (fp.shape, u.shape, st.shape) == ((0, 320, 128), (0, 192, 192),
+                                             (0, 4))
+    assert (f0.shape, u0.shape) == ((0, 320, 128), (0, 192, 192))
+
+
+def test_cholesky_many_perturb_one_clamping_matrix_matches_cpu(card):
+    import scipy.sparse as sp
+
+    K = kkt_saddle(8)
+    n = K.shape[0]
+    Ks = []
+    for s in (0.0, 10.0):        # same pattern; only the first clamps
+        M = sp.csc_matrix(K + sp.eye(n))
+        M.setdiag(K.diagonal() + s)
+        Ks.append(M)
+    BG = cholesky_many(Ks, device_engine=DeviceEngine(device=card),
+                       guard="perturb")
+    BC = cholesky_many(Ks, device="cpu", guard="perturb")
+    for rg, rc in zip(BG.guard_reports, BC.guard_reports):
+        assert [(q["supernode"], q["n_clamped"]) for q in rg.perturbations] \
+            == [(q["supernode"], q["n_clamped"]) for q in rc.perturbations]
+    assert BG.guard_reports[0].n_perturbed > 0
+    assert BG.guard_reports[1].n_perturbed == 0
+    b = np.ones(n)
+    for i, Ai in enumerate(Ks):
+        x = BG.factor(i).solve(b)
+        assert np.linalg.norm(Ai @ x - b) <= 1e-10 * np.linalg.norm(b)
