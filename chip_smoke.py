@@ -54,13 +54,25 @@ card:
    and raise) against four ``cholesky`` calls, its batched solve, and the
    warm ``cholesky(A, plan=PlanCache().get(A))`` against the warm call
    without a plan;
-9. prints a ``kernels`` JSON line, the card's name and power limit, and the
+9. the solver server (``repro_torch.launch.serve``): (a) a stream of 16
+   requests over two 2-D Laplacian patterns of grid 256 (n = 65,536 and
+   66,049) with batched requests of M = 4 under ``guard="raise"``, its
+   factorizations and solves per second and first- against repeat-pattern
+   factor seconds; (b) the CLI run twice on one cache directory, the
+   second serving from disk; (c) the fault tests' scenarios on the card
+   (an injected dispatch failure, every dispatch failing, the plain tier
+   down too, a corrupted upload, a poisoned pool, the chaos and perturb
+   streams), each with what its plan fired and the exact fallbacks, and
+   the cost of a step down a tier; (d) the stream of (a), 6 requests,
+   with ``verify=True``; (e) the three-dispatch oracle on ``lap3d_40``;
+10. prints a ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 numpy's BLAS runs one thread here unless ``OPENBLAS_NUM_THREADS`` is set.
 
-Every path runs with the kernels' launch counters set to 0 just before it
-and read just after.  Any failed check raises, so the script exits non-zero
+Every path runs with the kernels' launch counters, and the engines' tally
+of steps down the group fallback chain, set to 0 just before it and read
+just after; a step down fails every path but the chaos phase.  Any failed check raises, so the script exits non-zero
 and prints no result line.  It imports nothing of JAX or of the reference
 package ``repro``.
 """
@@ -608,9 +620,11 @@ def main_path(name: str, sym, Aperm, A, launches_of):
     t0 = time.perf_counter()
     F2 = cholesky(A, device_engine=eng2, sym=sym, Aperm=Aperm)
     out["factor_s_warm"] = time.perf_counter() - t0
+    # the group assembly adds up in a fixed order: a second run is equal
+    diff = np.max(np.abs(F2.store.storage - F.store.storage))
     if not np.array_equal(F2.store.storage, F.store.storage):
-        out["refactor_max_abs_diff"] = float(
-            np.max(np.abs(F2.store.storage - F.store.storage)))
+        raise AssertionError(f"{name}: a second factorization differs by "
+                             f"{diff:.3e}")
     del F2, eng2
     rng = np.random.default_rng(SEED)
     for k in (1, 64):
@@ -676,13 +690,19 @@ def seq_expect(sym, thr: int, method: str, fused: bool, bt: bool = False):
     return launches, st, ndev
 
 
-def run_path(fns: dict, totals: dict, fn):
-    """Run one path with every launch counter at 0 just before it; return
-    (result, wall seconds, launches), adding the launches to ``totals``."""
+def run_path(fns: dict, totals: dict, fn, steps_down: bool = False):
+    """Run one path with every launch counter, and the engines' tally of
+    steps down the group fallback chain, at 0 just before it; return
+    (result, wall seconds, launches), adding the launches to ``totals``.
+    A step down fails the path unless ``steps_down`` (the chaos phase)."""
     import torch
+
+    from repro_torch.core import engines
 
     for f in fns.values():
         f.launches = 0
+    for k in engines.STEPS_DOWN:
+        engines.STEPS_DOWN[k] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -691,6 +711,9 @@ def run_path(fns: dict, totals: dict, fn):
     got = {k: f.launches for k, f in fns.items()}
     for k, v in got.items():
         totals[k] += v
+    if any(engines.STEPS_DOWN.values()) and not steps_down:
+        raise AssertionError(f"a group stepped down the fallback chain: "
+                             f"{engines.STEPS_DOWN}")
     return out, secs, got
 
 
@@ -1180,6 +1203,389 @@ def many_and_plan_phases(mats):
     return out
 
 
+#: the serving phase's stream: two 2-D Laplacian patterns (n = 65,536 and
+#: 66,049, the size of kkt_256) and batched requests of M = 4
+SERVE = dict(patterns=2, grid=256, many=4, nrhs=4, seed=0)
+
+
+def timed_handle(srv) -> list:
+    """Time every request through ``srv.handle``: (kind, cache miss,
+    seconds, ok) per request, in order."""
+    import torch
+
+    recs = []
+    handle = srv.handle
+
+    def timed(kind, *args, **kw):
+        misses = srv.cache.stats["misses"]
+        t0 = time.perf_counter()
+        res = handle(kind, *args, **kw)
+        torch.cuda.synchronize()
+        recs.append((kind, srv.cache.stats["misses"] > misses,
+                     time.perf_counter() - t0, res["ok"]))
+        return res
+
+    srv.handle = timed
+    return recs
+
+
+def check_stream(label: str, rep: dict, misses: int) -> None:
+    """A clean stream: solves at the residual limit, no rebuild on a repeat
+    pattern, one miss per pattern, nothing rejected, no step down."""
+    bad = []
+    if not rep.get("max_solve_resid", np.inf) <= RESID_TOL:
+        bad.append("residual")
+    if rep["repeat_rebuilds"] != 0:
+        bad.append("repeat rebuilds")
+    if rep["cache"]["misses"] != misses:
+        bad.append("cache misses")
+    if rep["rejected"] != 0 or any(rep["degraded"].values()):
+        bad.append("rejected requests")
+    if any(rep["fallbacks"].values()):
+        bad.append("fallbacks")
+    if bad:
+        raise AssertionError(f"{label}: {', '.join(bad)}: {rep}")
+
+
+def serving_phase(requests: int):
+    """(a) The solver server at full size under ``guard="raise"``:
+    ``run_stream(CholeskyServer(), synthetic_stream(...))``."""
+    from repro_torch.launch.serve import (
+        CholeskyServer,
+        run_stream,
+        synthetic_stream,
+    )
+
+    srv = CholeskyServer()
+    recs = timed_handle(srv)
+    reqs = synthetic_stream(requests=requests, **SERVE)
+    rep = run_stream(srv, reqs, grid=SERVE["grid"], seed=SERVE["seed"])
+    check_stream("serve", rep, SERVE["patterns"])
+
+    def secs(kind, miss):
+        return [t for k, m, t, _ok in recs if k == kind and m == miss]
+
+    out = {k: rep[k] for k in ("factorizations_per_s", "solves_per_s",
+                               "factorizations", "solves", "factor_s",
+                               "solve_s", "requests", "cache",
+                               "max_solve_resid", "engine", "fallbacks")}
+    out.update(first_factor_s=secs("factor", True),
+               repeat_factor_s=secs("factor", False),
+               factor_many_s=secs("factor_many", False),
+               solve_request_s=secs("solve", False))
+    return out
+
+
+def cli_phase():
+    """(b) ``python -m repro_torch.launch.serve`` twice on one cache
+    directory: the second process serves every pattern from disk.  Each
+    process's report must show no step down a tier, no rejected request
+    and a solve residual within ``RESID_TOL`` (another process's steps
+    down are not in this one's ``STEPS_DOWN``)."""
+    import ast
+    import shutil
+
+    cache = ROOT / "build" / "serve_cache"
+    shutil.rmtree(cache, ignore_errors=True)
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--grid", "64",
+           "--patterns", "2", "--requests", "8", "--many", "2",
+           "--cache-dir", str(cache)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    runs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"serve CLI failed: {proc.stderr[-2000:]}")
+        lines = proc.stdout.splitlines()
+
+        def field(tag):
+            return next(ln for ln in lines if tag in ln).split(tag)[1]
+
+        stats = field("plan cache:")
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "cache": ast.literal_eval(
+                         stats.split("repeat_rebuilds")[0].strip()),
+                     "repeat_rebuilds": int(stats.split("=")[1]),
+                     "fallbacks": ast.literal_eval(
+                         field("fallbacks:").split("rejected")[0].strip()),
+                     "rejected": int(field("rejected=")),
+                     "max_solve_resid": float(field("max solve resid:")),
+                     "stdout": lines})
+    shutil.rmtree(cache, ignore_errors=True)
+    first, second = runs[0]["cache"], runs[1]["cache"]
+    if not (first["misses"] == 2 and second["misses"] == 0
+            and second["disk_hits"] > 0
+            and all(r["repeat_rebuilds"] == 0 and r["rejected"] == 0
+                    and not any(r["fallbacks"].values())
+                    and r["max_solve_resid"] <= RESID_TOL for r in runs)):
+        raise AssertionError(f"serve CLI: {runs}")
+    return runs
+
+
+def chaos_phase():
+    """(c) The scenarios of the fault tests on the card: each asserts what
+    its plan fired and the exact fallbacks."""
+    import scipy.sparse as sp
+    import torch
+
+    from repro_torch.core import (
+        BreakdownError,
+        DeviceEngine,
+        cholesky,
+        engines,
+    )
+    from repro_torch.faults import FaultPlan, make_indefinite
+    from repro_torch.kernels import fused_factor_syrk_guarded
+    from repro_torch.launch.serve import (
+        CholeskyServer,
+        run_stream,
+        synthetic_stream,
+    )
+    from repro_torch.sparse import laplacian_2d
+
+    out = {}
+    A = laplacian_2d(16)
+    b = np.ones(A.shape[0])
+
+    def run(plan=None, host=False):
+        eng = DeviceEngine()
+        eng.faults = plan
+        if host:  # the plain tier down too: the chain reaches the host
+
+            def plain_down(*_a, **_k):
+                raise RuntimeError("plain tier down")
+
+            eng._device_group = plain_down
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F = cholesky(A, device_engine=eng, guard="raise")
+        torch.cuda.synchronize()
+        return F, eng, time.perf_counter() - t0
+
+    def expect(label, eng, fired, fallbacks):
+        got = {"fired": eng.faults.fired, "fallbacks": eng.fallbacks}
+        out[label] = got
+        if got != {"fired": fired, "fallbacks": fallbacks}:
+            raise AssertionError(f"chaos {label}: {got}, want fired "
+                                 f"{fired} fallbacks {fallbacks}")
+
+    F0 = run()[0]
+    groups = F0.stats["schedule"]["batches"]
+    scale = float(np.max(np.abs(F0.store.storage)))
+    # fail_dispatch: the failed group launches no kernel, the plain tier
+    # runs it, and its result is the kernel's
+    n0 = fused_factor_syrk_guarded.launches
+    F, eng, _ = run(FaultPlan(fail_dispatch=1))
+    launched = fused_factor_syrk_guarded.launches - n0
+    expect("fail_dispatch", eng, [("fail_dispatch", 1, 0)],
+           {"plain": 1, "host": 0, "failed": 0})
+    diff = float(np.max(np.abs(F.store.storage - F0.store.storage)))
+    out["fail_dispatch"].update(guarded_launches=launched, groups=groups,
+                                max_abs_diff=diff, max_abs_L=scale)
+    if not (launched == groups - 1 and diff <= 1e-10 * scale
+            and F.guard_report.ok and residual(A, F.solve(b), b)
+            <= RESID_TOL):
+        raise AssertionError(f"chaos fail_dispatch: {out['fail_dispatch']}")
+    # any other error of the kernel tier is not served by the plain
+    # versions: it is counted as failed and raised
+    eng = DeviceEngine()
+    steps = dict(engines.STEPS_DOWN)
+
+    def refused(*_a, **_k):
+        raise RuntimeError("wrapper refused the group")
+
+    kernel, engines.fused_factor_syrk = engines.fused_factor_syrk, refused
+    try:
+        cholesky(A, device_engine=eng, guard="raise")
+    except RuntimeError as e:
+        out["kernel_error"] = {"error": str(e), "fallbacks": eng.fallbacks}
+    else:
+        raise AssertionError("chaos kernel_error: the error was absorbed")
+    finally:
+        engines.fused_factor_syrk = kernel
+    if not (eng.fallbacks == {"plain": 0, "host": 0, "failed": 1}
+            and engines.STEPS_DOWN == steps):
+        raise AssertionError(f"chaos kernel_error: {out['kernel_error']}")
+    # fail_always: every group steps down once (to the plain tier); with
+    # the plain tier down too, every group reaches the host tier; five
+    # rounds in turns with a clean run time a step down
+    tiers = {"clean": [], "fail_always": [], "fail_always_host": []}
+    last = {}
+    for _ in range(5):
+        tiers["clean"].append(run()[2])
+        for label, host in (("fail_always", False),
+                            ("fail_always_host", True)):
+            plan = FaultPlan(fail_dispatch=1, fail_always=True)
+            F, eng, t = run(plan, host=host)
+            tiers[label].append(t)
+            last[label] = (F, eng)
+    for label, host in (("fail_always", False), ("fail_always_host", True)):
+        F, eng = last[label]
+        fired = [("fail_dispatch", i + 1, lvl) for i, lvl in enumerate(
+            lvl for lvl, n in enumerate(F0.stats["level_stats"])
+            for _ in range(n["batches"]))]
+        expect(label, eng, fired, {"plain": groups,
+                                   "host": groups if host else 0,
+                                   "failed": 0})
+        diff = float(np.max(np.abs(F.store.storage - F0.store.storage)))
+        out[label]["max_abs_diff"] = diff
+        if not diff <= 1e-10 * scale:
+            raise AssertionError(f"chaos {label}: factor differs by {diff}")
+        out[label]["fired"] = len(out[label]["fired"])
+    # the cost of one step down, per group of this factorization
+    out["step_down_s_per_group"] = {
+        "plain": (min(tiers["fail_always"]) - min(tiers["clean"])) / groups,
+        "host": (min(tiers["fail_always_host"]) - min(tiers["clean"]))
+        / groups}
+    out["tier_factor_s"] = tiers
+    # silent corruption: only the in-kernel guard catches it
+    for label, plan, M in (("corrupt_upload", FaultPlan(corrupt_upload=1), 16),
+                           ("nan_pool", FaultPlan(nan_pool_level=0), 24)):
+        eng = DeviceEngine()
+        eng.faults = plan
+        try:
+            cholesky(laplacian_2d(M), device_engine=eng, guard="raise")
+        except BreakdownError as e:
+            rep = e.report
+        else:
+            raise AssertionError(f"chaos {label}: no BreakdownError")
+        fired = ([("corrupt_upload", 1)] if label == "corrupt_upload"
+                 else [("nan_pool", 0)])
+        expect(label, eng, fired, {"plain": 0, "host": 0, "failed": 0})
+        out[label].update(first_broken_level=rep.first_broken_level,
+                          broken=len(rep.broken))
+        if not (any(x["nonfinite"] for x in rep.broken)
+                and (label == "corrupt_upload"
+                     or rep.first_broken_level >= 1)):
+            raise AssertionError(f"chaos {label}: {out[label]}")
+
+    # the chaos stream and the perturb stream of the fault tests
+    def mutate(i, A_):
+        if i % 5 == 1:
+            return make_indefinite(A_, i=0, value=-50.0)
+        if i % 7 == 3:
+            B = sp.lil_matrix(A_.copy())
+            B[0, 0] = np.nan
+            return B.tocsc()
+        return A_
+
+    srv = CholeskyServer(guard="raise")
+    srv.engine.faults = FaultPlan(fail_dispatch=3)
+    rep = run_stream(srv, synthetic_stream(requests=14, patterns=3, grid=9,
+                                           many=2, seed=5),
+                     grid=9, seed=5, mutate=mutate)
+    expect("chaos_stream", srv.engine, srv.engine.faults.fired[:1],
+           {"plain": 1, "host": 0, "failed": 0})
+    deg = rep["degraded"]
+    out["chaos_stream"].update(degraded=deg, rejected=rep["rejected"],
+                               max_solve_resid=rep["max_solve_resid"])
+    if not (srv.engine.faults.fired[0][:2] == ("fail_dispatch", 3)
+            and rep["rejected"] > 0 and deg["breakdowns"] > 0
+            and deg["bad_inputs"] > 0 and rep["max_solve_resid"] < 1e-8):
+        raise AssertionError(f"chaos stream: {rep}")
+    srv = CholeskyServer(guard="perturb")
+
+    def indefinite(i, A_):
+        return make_indefinite(A_, i=1, value=-9.0) if i == 2 else A_
+
+    rep = run_stream(srv, synthetic_stream(requests=8, patterns=2, grid=9,
+                                           many=2, seed=2),
+                     grid=9, seed=2, mutate=indefinite)
+    out["perturb_stream"] = {"degraded": rep["degraded"],
+                             "fallbacks": rep["fallbacks"],
+                             "max_solve_resid": rep["max_solve_resid"]}
+    if not (rep["degraded"]["recovered"] >= 1 and rep["rejected"] == 0
+            and rep["max_solve_resid"] < 1e-8
+            and not any(rep["fallbacks"].values())):
+        raise AssertionError(f"perturb stream: {rep}")
+    return out
+
+
+def verify_phase(requests: int):
+    """(d) The serving stream with ``verify=True``: every new pattern's
+    plan linted, every factor request's trace audited, no error."""
+    from repro_torch.launch.serve import (
+        CholeskyServer,
+        run_stream,
+        synthetic_stream,
+    )
+
+    srv = CholeskyServer(verify=True)
+    rep = run_stream(srv, synthetic_stream(requests=requests, **SERVE),
+                     grid=SERVE["grid"], seed=SERVE["seed"])
+    check_stream("verify", rep, SERVE["patterns"])
+    if "error" in rep["verify"]:
+        raise AssertionError(f"verify: {rep['verify']}")
+    return {"verify": rep["verify"], "findings": len(srv.verify_findings),
+            "factor_s": rep["factor_s"], "requests": rep["requests"]}
+
+
+def oracle_phase(mats):
+    """(e) The three-dispatch oracle (``fused_groups=False``) on lap3d_40:
+    three engine calls a group and one ``fused_factor_syrk`` launch a group
+    on either bucket family.  On the one-dispatch path's own ``"fused"``
+    family its panels equal the one-dispatch factor bit for bit.  On the
+    reference's fine ``"batch"`` family (the oracle's default) the two
+    group the prefix sums differently, so they are held to the rounding of
+    those sums: a cell's ``C[hi] - C[lo]`` rounds at the scale of the
+    running totals, at most 2u max|C| on each side (u = 2^-53), and a
+    panel entry moves by no more than its cell (every pivot of lap3d_40 is
+    above 4), so ``|L_batch - L_fused| <= 4u (P_batch + P_fused)`` with P
+    each oracle's ``scan_peak``: a first-order bound, which ignores growth
+    through later levels.  The reference's 1e-12 ``allclose`` is
+    reported beside it."""
+    import torch
+
+    from repro_torch.core import DeviceEngine, cholesky
+    from repro_torch.core.numeric import _factorize_levels_device
+    from repro_torch.kernels import fused_factor_syrk
+
+    A, sym, Ap = mats["lap3d_40"]
+    eng1 = DeviceEngine()
+    F1 = cholesky(A, sym=sym, Aperm=Ap, device_engine=eng1)
+    b = np.random.default_rng(SEED).standard_normal(A.shape[0])
+    rec, peaks, bad = {}, {}, []
+    for family in ("batch", "fused"):
+        eng3 = DeviceEngine(fused_groups=False)
+        n0 = fused_factor_syrk.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        F3 = _factorize_levels_device(
+            sym, Ap, eng3, bucket=None if family == "batch" else family)
+        t3 = time.perf_counter() - t0
+        launched = fused_factor_syrk.launches - n0
+        stats = dict(eng3.stats)
+        batches = F3.stats["schedule"]["batches"]
+        peaks[family] = float(eng3.scan_peak)
+        diff = max(float(np.max(np.abs(p3 - p1)))
+                   for p3, p1 in zip(F3.panels, F1.panels))
+        # np.testing.assert_allclose(rtol=1e-12, atol=1e-12), as a ratio
+        ratio = max(float(np.max(np.abs(p3 - p1)
+                                 / (1e-12 + 1e-12 * np.abs(p1))))
+                    for p3, p1 in zip(F3.panels, F1.panels))
+        res = residual(A, F3.solve(b, backend="device"), b)
+        rec[family] = {"bucket": F3.stats["bucket"], "batches": batches,
+                       "factor_stats": stats,
+                       "fused_launches": launched, "factor_s": t3,
+                       "max_abs_diff": diff, "allclose_1e12_ratio": ratio,
+                       "scan_peak": peaks[family], "resid": res}
+        if not (F3.stats["bucket"] == family
+                and stats["device_calls"] == 3 * batches
+                and launched == batches and res <= RESID_TOL):
+            bad.append(family)
+        del F3
+    tol = 4 * 2.0 ** -53 * (peaks["batch"] + peaks["fused"])
+    rec["batch"].update(bound=tol,
+                        bound_ratio=rec["batch"]["max_abs_diff"] / tol)
+    rec["one_dispatch_calls"] = eng1.stats["device_calls"]
+    if (bad or rec["batch"]["max_abs_diff"] > tol
+            or rec["fused"]["max_abs_diff"] != 0.0
+            or eng1.stats["device_calls"] != rec["fused"]["batches"]):
+        raise AssertionError(f"three-dispatch oracle: {rec}")
+    return rec
+
 
 def entry_name(line: str) -> str:
     """The last name of the mangled entry function in a ptxas or SASS line
@@ -1238,6 +1644,7 @@ def main() -> None:
         cached_schedule,
         cholesky,
         device_plan,
+        engines,
         perturb_threshold,
     )
     from repro_torch.core.api import symbolic_pipeline
@@ -1338,6 +1745,31 @@ def main() -> None:
             and counts["fused_factor_syrk_guarded"] > 0):
         raise AssertionError(f"a kernel of the multi-matrix path was not "
                              f"launched: {counts}")
+    # the solver server and what it stands on
+    rec, secs, counts = run_path(fns, totals, lambda: serving_phase(16))
+    print("serve", json.dumps(rec), flush=True)
+    print(f"(a) serve path launches: {counts} ({secs:.1f} s)", flush=True)
+    if not (counts["fused_factor_syrk_guarded"] > 0
+            and counts["tri_inv_lower"] > 0):
+        raise AssertionError(f"a kernel of the serve path was not launched: "
+                             f"{counts}")
+    rec, secs, _ = run_path(fns, totals, cli_phase)
+    print("cli", json.dumps(rec), flush=True)
+    print(f"(b) serve CLI twice ({secs:.1f} s)", flush=True)
+    rec, secs, counts = run_path(fns, totals, chaos_phase, steps_down=True)
+    print("chaos", json.dumps(rec), flush=True)
+    print(f"(c) chaos launches: {counts}, steps down {engines.STEPS_DOWN} "
+          f"({secs:.1f} s)", flush=True)
+    if not (engines.STEPS_DOWN["plain"] > 0
+            and engines.STEPS_DOWN["host"] > 0):
+        raise AssertionError(f"chaos: no step down {engines.STEPS_DOWN}")
+    rec, secs, counts = run_path(fns, totals, lambda: verify_phase(6))
+    print("verify", json.dumps(rec), flush=True)
+    print(f"(d) verify launches: {counts} ({secs:.1f} s)", flush=True)
+    rec, secs, counts = run_path(fns, totals, lambda: oracle_phase(mats))
+    print("oracle", json.dumps(rec), flush=True)
+    print(f"(e) three-dispatch oracle launches: {counts} ({secs:.1f} s)",
+          flush=True)
     print(f"launches over all paths: {totals}", flush=True)
     if min(totals.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {totals}")

@@ -253,12 +253,13 @@ def device_plan(sym: SymbolicFactor, sched: LevelSchedule) -> DeviceGroupPlan:
 class _DevGroup:
     """One group's index arrays as device tensors (int64 indices, int32
     lane extents), plus its solve buffers once materialized."""
-    __slots__ = ("src", "lo", "hi", "gidx", "ppack", "upack", "rows", "ws",
-                 "cols", "tails", "off", "base", "lb", "P", "Dinv")
+    __slots__ = ("cells", "src", "lo", "hi", "gidx", "ppack", "upack",
+                 "rows", "ws", "cols", "tails", "off", "base", "lb", "P",
+                 "Dinv")
 
-    def __init__(self, src, lo, hi, gidx, ppack, upack, rows, ws, cols,
-                 tails, off, base, lb):
-        self.src, self.lo, self.hi = src, lo, hi
+    def __init__(self, cells, src, lo, hi, gidx, ppack, upack, rows, ws,
+                 cols, tails, off, base, lb):
+        self.cells, self.src, self.lo, self.hi = cells, src, lo, hi
         self.gidx, self.ppack, self.upack = gidx, ppack, upack
         self.rows, self.ws = rows, ws
         self.cols, self.tails = cols, tails
@@ -267,9 +268,12 @@ class _DevGroup:
         self.Dinv = None  # inverted diagonal blocks (built at finalize)
 
 
-#: the index arrays every group uploads, in upload order
+#: the index arrays every group uploads, in upload order (the fused dispatch
+#: slices its level chunk and never indexes raw storage cells)
 _KINDS = ("src", "lo", "hi", "gidx", "ppack", "upack", "rows_arr", "ws_arr",
           "cols", "tails")
+#: the three-dispatch oracle's: it gathers from the whole staged storage
+_ORACLE_KINDS = ("cells",) + _KINDS
 #: the ones a store of an already-factored storage needs (the solve's)
 _SOLVE_KINDS = ("gidx", "cols", "tails")
 
@@ -287,6 +291,12 @@ class DevicePanelStore:
                  ``prefetch_level(k + 1)`` before dispatching level k.
                  The default.
         'sync'   one upload of all levels at construction.
+
+    With an engine of ``fused_groups=False`` a group runs as the
+    reference's three dispatches (``gather_group`` from the whole staged
+    storage, ``factor_group``, ``pack_group``): the oracle the one-dispatch
+    group is held to.  It stages synchronously and has no guard and no
+    multi-matrix layout, so those raise, as in the reference.
 
     ``assemble_group`` advances the factorization one (level, bucket)
     dispatch at a time with zero transfers; ``read_into`` brings the factor
@@ -322,18 +332,35 @@ class DevicePanelStore:
         self.guard = bool(guard)
         self.guard_thr = float(guard_thr)
         self.guard_clamp = bool(guard_clamp)
+        self.fused = (not factored) and eng.fused_groups
         self._status: list = []
         self._status_host = None
         if self.guard and factored:
             raise ValueError("guard applies only to a store that factors")
         if factored and staging is not None:
             raise ValueError("staging applies only to a store that factors")
-        staging = "sync" if factored else (
-            "async" if staging is None else staging)
+        if self.guard and not (factored or self.fused):
+            raise ValueError(
+                "guarded factorization needs fused groups (the "
+                "three-dispatch fallback emits no status lanes)"
+            )
+        if self.nmat > 1 and not (factored or self.fused):
+            raise ValueError(
+                "multi-matrix factorization needs fused groups (the "
+                "three-dispatch fallback has no multi-matrix programs)"
+            )
+        if staging is None:
+            staging = "async" if self.fused else "sync"
         if staging not in ("async", "sync"):
             raise ValueError(f"unknown staging {staging!r} (want 'async' or 'sync')")
+        if staging == "async" and not self.fused:
+            raise ValueError(
+                "staging='async' needs fused groups (the three-dispatch "
+                "path gathers from the full staged storage)"
+            )
         self.staging = staging
-        kinds = _SOLVE_KINDS if factored else _KINDS
+        kinds = (_SOLVE_KINDS if factored
+                 else _KINDS if self.fused else _ORACLE_KINDS)
         parts = [getattr(g, k).ravel()
                  for lvl in gp.groups for g in lvl for k in kinds]
         flat = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int32)
@@ -350,6 +377,7 @@ class DevicePanelStore:
                     devs[k] = dflat[pos:pos + a.size].reshape(a.shape)
                     pos += a.size
                 row.append(_DevGroup(
+                    cells=devs.get("cells", empty),
                     src=devs.get("src", empty), lo=devs.get("lo", empty),
                     hi=devs.get("hi", empty), gidx=devs["gidx"],
                     ppack=devs.get("ppack", empty),
@@ -367,6 +395,7 @@ class DevicePanelStore:
         self.trash = self._iperm = self._operm = None
         self._host_storage = None
         self._chunks: list = []
+        self.storage0 = None
         lead = (self.nmat,) if self.nmat > 1 else ()
         if factored:
             # the factored panels, packed, plus the shared zero and one cells
@@ -378,6 +407,9 @@ class DevicePanelStore:
             return
         self.pool = torch.zeros(lead + (gp.pool_size,), dtype=torch.float64,
                                 device=eng.device)
+        if not self.fused:
+            self.storage0 = eng.put(host_storage)
+            return
         lb = gp.level_base
         nlev = len(gp.groups)
         if staging == "sync":
@@ -410,8 +442,15 @@ class DevicePanelStore:
         return self.eng.wait(self._chunks[lvl])
 
     def assemble_group(self, lvl: int, gi: int) -> None:
-        """Factor one (level, bucket) group on the device: ONE dispatch."""
+        """Factor one (level, bucket) group on the device: ONE dispatch with
+        fused groups, three on the oracle path."""
         g = self.groups[lvl][gi]
+        if not self.fused:
+            eng = self.eng
+            buf = eng.gather_group(self.storage0, self.pool, g)
+            fp, u = eng.factor_group(buf, g.rows, g.ws)
+            self._packed.append(eng.pack_group(fp, u, self.pool, g))
+            return
         run = (self.eng.fused_group_many if self.nmat > 1
                else self.eng.fused_group)
         if self.guard:
@@ -433,7 +472,7 @@ class DevicePanelStore:
             tail = tail.expand(self.nmat, 2)
         self.factor_ext = torch.cat(self._packed + [tail], dim=-1)
         self._packed = []
-        self.pool = None
+        self.pool = self.storage0 = None
         self._chunks = []
         self._host_storage = None
 

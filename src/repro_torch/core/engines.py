@@ -1,6 +1,6 @@
 """Device engine in PyTorch: the reference's ``DeviceEngine``
-(``src/repro/core/engines.py``) without its jit program cache and fallback
-chain.  Three protocols:
+(``src/repro/core/engines.py``) without its jit program cache.  Three
+protocols:
 
     per-op (sequential RL/RLB)  ``stage`` / ``factor`` / ``read_panel`` /
                                 ``syrk_tail`` / ``syrk_block`` /
@@ -14,7 +14,10 @@ chain.  Three protocols:
     device-resident (levels)    ``put`` / ``put_async`` / ``get``,
                                 ``fused_group`` (guarded or not),
                                 ``fused_group_many`` (M matrices of one
-                                pattern), ``invert_diag``,
+                                pattern), the three-dispatch oracle
+                                ``gather_group`` / ``factor_group`` /
+                                ``pack_group`` (``fused_groups=False``),
+                                ``invert_diag``,
                                 ``solve_fwd_level`` / ``solve_bwd_level``,
                                 ``stage_rhs`` / ``unstage_rhs`` (a resident
                                 right-hand side)
@@ -32,7 +35,19 @@ PyTorch around its kernels.  The reference donates the update pool and the
 solve RHS to its programs; here both are updated in place.  That is safe
 for the pool because a group's gather reads ``pool[src]`` only from entries
 written by earlier levels, and its write ``[off, off + n_out)`` is disjoint
-from them.  The engine has no fallback chain: a failed launch raises.
+from them.
+
+A fused group dispatch runs through the reference's fallback chain: the
+CUDA kernels, then their plain PyTorch versions on the same device, then
+the plain versions on host copies (on the CPU the chain starts at the
+plain versions).  On a card only a fault plan's injected dispatch failure
+steps down from the kernels; any other error of the CUDA tier is counted
+as ``failed`` and raised, so a kernel's limit or fault is never served
+by the plain versions.  Every step down is counted in ``fallbacks``,
+logged as a ``fallback:<tier>`` event and added to the process-wide
+``STEPS_DOWN``; a ``KernelBuildError`` is never absorbed.  A ``faults``
+plan (``repro_torch.faults.FaultPlan``) hooks the uploads and the
+dispatches for the chaos tests.
 
 ``device`` is explicit.  The default is ``"cuda"``, which raises when no card
 is present; ``device="cpu"`` runs the kernels' plain PyTorch versions on the
@@ -40,15 +55,54 @@ host.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
 
 from repro_torch.core.buckets import bucket_shape
+from repro_torch.faults import InjectedDispatchError
 from repro_torch.kernels import ops
-from repro_torch.kernels.fused import fused_factor_syrk
+from repro_torch.kernels._build import KernelBuildError
+from repro_torch.kernels.fused import (
+    fused_factor_syrk,
+    fused_factor_syrk_guarded_ref,
+    fused_factor_syrk_ref,
+)
 from repro_torch.kernels.trsm import tri_inv_lower
+
+#: process-wide steps down a tier of the group fallback chain, summed over
+#: every engine (as each kernel wrapper counts its ``launches``): a run that
+#: injects no fault must leave it at zero
+STEPS_DOWN = {"plain": 0, "host": 0}
+
+
+#: block length of ``ordered_cumsum``'s per-row scans
+_SCAN = 1024
+
+
+def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, 1)`` of an (M, n) tensor, added up in the same
+    order on every run.  On a card, ``torch.cumsum`` of one long row runs
+    CUB's decoupled look-back scan, whose association order, and so its
+    fp64 rounding, changes from run to run (a row of 10^6 entries differed
+    in every one of 20 runs on an H100), which made two factorizations of
+    ``lap3d_40`` differ by 4e-12.  Here each row is cut into blocks of
+    ``_SCAN`` entries, which PyTorch scans as separate rows, in a fixed
+    order, and the block totals are scanned the same way."""
+    M, n = x.shape
+    nb = -(-n // _SCAN)
+    if nb <= 1:
+        # one row alone would take the look-back scan: scan it as two rows
+        return torch.cumsum(x, 1) if M > 1 else \
+            torch.cumsum(x.expand(2, n), 1)[:1]
+    blk = torch.nn.functional.pad(x, (0, nb * _SCAN - n))
+    part = torch.cumsum(blk.reshape(M * nb, _SCAN), 1).reshape(M, nb, _SCAN)
+    tot = ordered_cumsum(part[:, :, -1])
+    part[:, 1:] += tot[:, :-1, None]
+    return part.reshape(M, nb * _SCAN)[:, :n]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -76,6 +130,52 @@ class Upload:
     host: torch.Tensor | None = None
 
 
+#: the index arrays and offsets of a group that ``_group_math`` reads
+_GROUP_FIELDS = ("src", "lo", "hi", "gidx", "rows", "ws", "ppack", "upack",
+                 "off", "lb")
+
+
+def _group_math(many: bool, chunk, pool, g, guard: bool, thr: float,
+                clamp: bool, plain: bool):
+    """One group on the device its tensors lie on: slice the level chunk,
+    apply the pending updates by the prefix-sum trick, factor (through the
+    kernel wrapper, which runs the plain version for a CPU tensor, or with
+    ``plain`` through the plain PyTorch versions directly), write the
+    update entries into ``pool`` in place and return the packed factored
+    cells (with ``guard`` also the per-lane status).  A single matrix runs
+    as M = 1."""
+    if not many:
+        chunk, pool = chunk[None], pool[None]
+    M = chunk.shape[0]
+    Bp, Lp, Wp = g.gidx.shape
+    n_out = int(g.upack.shape[0])
+    pc = chunk[:, g.lb:g.lb + int(g.ppack.shape[0])]
+    if g.src.shape[0]:
+        vals = pool[:, g.src]  # (M, n_in), destination-sorted
+        C = torch.cat([vals.new_zeros((M, 1)), ordered_cumsum(vals)], 1)
+        pc = pc - (C[:, g.hi] - C[:, g.lo])
+    ext = torch.cat([pc, pc.new_zeros((M, 1)), pc.new_ones((M, 1))], 1)
+    buf = ext[:, g.gidx].reshape(M * Bp, Lp, Wp)
+    rows, ws = (g.rows, g.ws) if M == 1 else (g.rows.repeat(M),
+                                              g.ws.repeat(M))
+    t = thr if clamp else 0.0
+    if plain and guard:
+        fp, u, st = fused_factor_syrk_guarded_ref(buf, rows, ws, t)
+    elif plain:
+        fp, u = fused_factor_syrk_ref(buf, rows, ws)
+    elif guard:
+        fp, u, st = fused_factor_syrk(buf, rows, ws, guard=True, thr=t)
+    else:
+        fp, u = fused_factor_syrk(buf, rows, ws)
+    if n_out:
+        pool[:, g.off:g.off + n_out] = u.reshape(M, -1)[:, g.upack]
+    packed = fp.reshape(M, -1)[:, g.ppack]
+    if not guard:
+        return packed if many else packed[0]
+    st = st.reshape(M, Bp, -1)
+    return (packed, st) if many else (packed[0], st[0])
+
+
 class _Handle:
     """A staged supernode: ``dev`` its (rows, w) panel on the device, ``u``
     the update matrix a fused factor left behind."""
@@ -99,33 +199,60 @@ class _BatchHandle:
 class DeviceEngine:
     """Engine that runs the dense supernode math on one device.
 
-    fused   the sequential path's ``factor`` runs POTRF + TRSM + SYRK as one
-            ``fused_factor_syrk`` call (beyond the paper, which calls
-            DPOTRF and DTRSM separately); False runs ``ops.factor_panel``
-            (potrf + trsm_rlt) and leaves the SYRK to ``syrk_tail``
-    stats   transfers_in/out, bytes_in/out and device_calls, counted as the
-            reference counts them
-    events  ordered issue log of (tag, level) upload/dispatch events — the
-            evidence that level k+1's upload is issued before level k is
-            dispatched; reset at the start of every factorization
+    fused         the sequential path's ``factor`` runs POTRF + TRSM + SYRK
+                  as one ``fused_factor_syrk`` call (beyond the paper, which
+                  calls DPOTRF and DTRSM separately); False runs
+                  ``ops.factor_panel`` (potrf + trsm_rlt) and leaves the
+                  SYRK to ``syrk_tail``
+    fused_groups  device-resident path: each (level x bucket) group is ONE
+                  dispatch (gather + apply updates + factor + pack); False
+                  keeps the reference's three-dispatch pipeline
+                  (``gather_group`` / ``factor_group`` / ``pack_group``) as
+                  the oracle
+    events_cap    ring-buffer bound of ``events``
+    stats         transfers_in/out, bytes_in/out and device_calls, counted
+                  as the reference counts them
+    events        ordered issue log of (tag, level) upload/dispatch events —
+                  the evidence that level k+1's upload is issued before
+                  level k is dispatched; reset at the start of every
+                  factorization, and ``events_overflowed`` is set once the
+                  ring buffer drops an event (the hazard audit then reports
+                  INCONCLUSIVE)
+    fallbacks     steps down the group fallback chain by tier, and groups
+                  that failed (not in ``stats``, which callers compare
+                  whole)
+    scan_peak     the three-dispatch oracle's largest running total
+                  ``max |C|`` of its prefix sums, a device scalar (None
+                  before a group with pending updates): the scale of the
+                  rounding by which two groupings of them differ
+    faults        a ``repro_torch.faults.FaultPlan`` (None in production)
     """
 
     name = "device"
 
-    def __init__(self, device=None, fused: bool = True):
+    def __init__(self, device=None, fused: bool = True,
+                 fused_groups: bool = True, events_cap: int = 4096):
         self.device = resolve_device(device)
         self.fused = bool(fused)
+        self.fused_groups = bool(fused_groups)
         self.stats = {"transfers_in": 0, "transfers_out": 0,
                       "bytes_in": 0, "bytes_out": 0, "device_calls": 0}
-        self.events: list = []
+        self.events: deque = deque(maxlen=events_cap)
+        self.events_overflowed = False
+        self.faults = None
+        self.fallbacks = {"plain": 0, "host": 0, "failed": 0}
+        self.scan_peak = None
         self._copy_stream = None
 
     def _event(self, tag: str, lvl: int) -> None:
+        if len(self.events) == self.events.maxlen:
+            self.events_overflowed = True
         self.events.append((tag, lvl))
 
     def reset_events(self) -> None:
         """Start a fresh event log (top of each factorization)."""
         self.events.clear()
+        self.events_overflowed = False
 
     # -- transfers ---------------------------------------------------------
     def _count_in(self, x: np.ndarray) -> None:
@@ -134,6 +261,8 @@ class DeviceEngine:
 
     def put(self, x: np.ndarray) -> torch.Tensor:
         """Host -> device transfer (counted), complete when it returns."""
+        if self.faults is not None:
+            x = self.faults.on_put(self, x)
         x = np.ascontiguousarray(x)
         self._count_in(x)
         # a copy on the CPU too: callers may write to what they staged
@@ -146,6 +275,8 @@ class DeviceEngine:
         stream after it.  On the CPU it is ``put``."""
         if self.device.type != "cuda":
             return Upload(self.put(x))
+        if self.faults is not None:
+            x = self.faults.on_put(self, x)
         x = np.ascontiguousarray(x)
         self._count_in(x)
         host = torch.from_numpy(x).pin_memory()
@@ -304,7 +435,41 @@ class DeviceEngine:
         hb.dev = None
         hb.u = None
 
-    # -- device-resident factor ---------------------------------------------
+    # -- device-resident factor: three dispatches (the oracle) -------------
+    def gather_group(self, storage0: torch.Tensor, pool: torch.Tensor, g):
+        """One group's stacked padded panel buffer (Bp, Lp, Wp), gathered
+        from the whole staged storage with its pending updates applied by
+        the prefix-sum trick.  Zero transfers."""
+        self.stats["device_calls"] += 1
+        pc = storage0[g.cells]
+        if g.src.shape[0]:
+            vals = pool[g.src]  # incoming update entries, destination-sorted
+            C = torch.cat([vals.new_zeros(1), ordered_cumsum(vals[None])[0]])
+            pc = pc - (C[g.hi] - C[g.lo])
+            peak = C.abs().max()
+            self.scan_peak = (peak if self.scan_peak is None
+                              else torch.maximum(self.scan_peak, peak))
+        ext = torch.cat([pc, pc.new_zeros(1), pc.new_ones(1)])
+        return ext[g.gidx]
+
+    def factor_group(self, buf: torch.Tensor, rows: torch.Tensor,
+                     ws: torch.Tensor):
+        """One ``fused_factor_syrk`` call over a stacked buffer with the
+        group's true per-lane extents; returns ``(fp, u)``."""
+        self.stats["device_calls"] += 1
+        return fused_factor_syrk(buf, rows, ws)
+
+    def pack_group(self, fp: torch.Tensor, u: torch.Tensor,
+                   pool: torch.Tensor, g) -> torch.Tensor:
+        """The group's packed factored cells; its update entries go into
+        ``pool[off, off + n_out)`` in place.  Zero transfers."""
+        self.stats["device_calls"] += 1
+        n_out = int(g.upack.shape[0])
+        if n_out:
+            pool[g.off:g.off + n_out] = u.reshape(-1)[g.upack]
+        return fp.reshape(-1)[g.ppack]
+
+    # -- device-resident factor: one dispatch through the fallback chain ----
     def fused_group(self, chunk: torch.Tensor, pool: torch.Tensor, g,
                     lvl: int = -1, *, guard: bool = False, thr: float = 0.0,
                     clamp: bool = False):
@@ -315,26 +480,12 @@ class DeviceEngine:
 
         ``guard`` runs the guarded kernel instead and returns ``(packed,
         st)`` with ``st`` the (Bp, 4) per-lane status; ``clamp`` clamps
-        pivots at ``thr`` (without it the kernel only detects, thr = 0)."""
+        pivots at ``thr`` (without it the kernel only detects, thr = 0).
+        A failure degrades through ``_run_group_chain``."""
         self.stats["device_calls"] += 1
         self._event("dispatch", lvl)
-        n_out = int(g.upack.shape[0])
-        pc = chunk[g.lb:g.lb + int(g.ppack.shape[0])]
-        if g.src.shape[0]:
-            vals = pool[g.src]  # incoming update entries, destination-sorted
-            C = torch.cat([vals.new_zeros(1), torch.cumsum(vals, 0)])
-            pc = pc - (C[g.hi] - C[g.lo])
-        ext = torch.cat([pc, pc.new_zeros(1), pc.new_ones(1)])
-        buf = ext[g.gidx]  # (Bp, Lp, Wp)
-        if guard:
-            fp, u, st = fused_factor_syrk(buf, g.rows, g.ws, guard=True,
-                                          thr=thr if clamp else 0.0)
-        else:
-            fp, u = fused_factor_syrk(buf, g.rows, g.ws)
-        if n_out:
-            pool[g.off:g.off + n_out] = u.reshape(-1)[g.upack]
-        packed = fp.reshape(-1)[g.ppack]
-        return (packed, st) if guard else packed
+        return self._run_group_chain(False, chunk, pool, g, lvl, guard, thr,
+                                     clamp)
 
     def fused_group_many(self, chunk: torch.Tensor, pool: torch.Tensor, g,
                          lvl: int = -1, *, guard: bool = False,
@@ -346,26 +497,95 @@ class DeviceEngine:
         status."""
         self.stats["device_calls"] += 1
         self._event("dispatch", lvl)
-        M = chunk.shape[0]
-        Bp, Lp, Wp = g.gidx.shape
-        n_out = int(g.upack.shape[0])
-        pc = chunk[:, g.lb:g.lb + int(g.ppack.shape[0])]
-        if g.src.shape[0]:
-            vals = pool[:, g.src]  # (M, n_in), destination-sorted
-            C = torch.cat([vals.new_zeros((M, 1)), torch.cumsum(vals, 1)], 1)
-            pc = pc - (C[:, g.hi] - C[:, g.lo])
-        ext = torch.cat([pc, pc.new_zeros((M, 1)), pc.new_ones((M, 1))], 1)
-        buf = ext[:, g.gidx].reshape(M * Bp, Lp, Wp)
-        rows, ws = g.rows.repeat(M), g.ws.repeat(M)
-        if guard:
-            fp, u, st = fused_factor_syrk(buf, rows, ws, guard=True,
-                                          thr=thr if clamp else 0.0)
-        else:
-            fp, u = fused_factor_syrk(buf, rows, ws)
-        if n_out:
-            pool[:, g.off:g.off + n_out] = u.reshape(M, -1)[:, g.upack]
-        packed = fp.reshape(M, -1)[:, g.ppack]
-        return (packed, st.reshape(M, Bp, -1)) if guard else packed
+        return self._run_group_chain(True, chunk, pool, g, lvl, guard, thr,
+                                     clamp)
+
+    def _group_tiers(self) -> list:
+        """The fallback chain of a fused group: the CUDA kernels (on a
+        card), their plain PyTorch versions on the same device, the plain
+        versions on host copies.  Each tier runs at most once per group."""
+        tiers = ["cuda"] if self.device.type == "cuda" else []
+        return tiers + ["plain", "host"]
+
+    def _run_group_chain(self, many: bool, chunk, pool, g, lvl: int,
+                         guard: bool, thr: float, clamp: bool):
+        """Dispatch one fused group through the fallback chain.
+
+        The first tier runs the fault plan's ``on_dispatch`` hook, so an
+        injected failure exercises the chain; a tier that raises is counted
+        in ``fallbacks`` and ``STEPS_DOWN`` and logged as a
+        ``fallback:<next tier>`` event.  The ``cuda`` tier steps down only
+        for an ``InjectedDispatchError``: any other error there (a shape
+        the wrapper refuses, an out-of-memory, a launch error) is counted
+        in ``fallbacks["failed"]`` and propagates, since the plain versions
+        would serve it about a thousand times slower.  A
+        ``KernelBuildError`` propagates at once with nothing counted: a
+        kernel that cannot be built is a broken installation, not a failed
+        dispatch.  If every tier fails, ``fallbacks["failed"]`` counts it
+        and the first error propagates.
+
+        Running a group again after a tier failed is safe with the in-place
+        pool: a group reads ``pool[src]`` only from entries that earlier
+        levels wrote, and writes only its own ``[off, off + n_out)``, so a
+        failed tier's partial write is overwritten and never read."""
+        first_err = None
+        for i, tier in enumerate(self._group_tiers()):
+            if i > 0:
+                self.fallbacks[tier] += 1
+                STEPS_DOWN[tier] += 1
+                self._event(f"fallback:{tier}", lvl)
+            try:
+                if i == 0 and self.faults is not None:
+                    self.faults.on_dispatch(self, lvl)
+                if tier == "host":
+                    out = self._host_group(many, chunk, pool, g, guard, thr,
+                                           clamp)
+                else:
+                    out = self._device_group(many, chunk, pool, g, guard,
+                                             thr, clamp, plain=i > 0)
+            except KernelBuildError:
+                raise
+            except Exception as e:  # noqa: BLE001 — counted, never silent
+                if tier == "cuda" and not isinstance(e,
+                                                     InjectedDispatchError):
+                    self.fallbacks["failed"] += 1
+                    raise
+                if first_err is None:
+                    first_err = e
+                continue
+            if self.faults is not None:
+                out = self.faults.on_group_result(self, out, pool, lvl)
+            return out
+        self.fallbacks["failed"] += 1
+        raise first_err
+
+    def _device_group(self, many: bool, chunk, pool, g, guard: bool,
+                      thr: float, clamp: bool, plain: bool):
+        """The ``cuda`` tier, or with ``plain`` (a step down) the ``plain``
+        tier: ``_group_math`` on the group's own device."""
+        return _group_math(many, chunk, pool, g, guard, thr, clamp, plain)
+
+    def _host_group(self, many: bool, chunk, pool, g, guard: bool,
+                    thr: float, clamp: bool):
+        """Last tier: ``_group_math`` through the plain versions on host
+        copies of the chunk, the pool and the group's index arrays (one
+        transfer out), the results and the pool sent back (one transfer
+        in), as the reference's ``_host_fused_group`` counts them."""
+        cpu = torch.device("cpu")
+        ch, po = chunk.to(cpu, copy=True), pool.to(cpu, copy=True)
+        fields = {k: getattr(g, k) for k in _GROUP_FIELDS}
+        hg = SimpleNamespace(**{k: v.to(cpu) if torch.is_tensor(v) else v
+                                for k, v in fields.items()})
+        self.stats["transfers_out"] += 1
+        self.stats["bytes_out"] += ch.nbytes + po.nbytes
+        out = _group_math(many, ch, po, hg, guard, thr, clamp, plain=True)
+        packed = out[0] if guard else out
+        self.stats["transfers_in"] += 1
+        self.stats["bytes_in"] += packed.nbytes + po.nbytes
+        pool.copy_(po)
+        if not guard:
+            return packed.to(self.device)
+        return packed.to(self.device), out[1].to(self.device)
 
     # -- resident right-hand sides ------------------------------------------
     def stage_rhs(self, b: torch.Tensor, iperm: torch.Tensor,

@@ -501,6 +501,7 @@ def _factorize_levels_device(
     guard: str | None = None,
     guard_thr: float = 0.0,
     guard_clamp: bool = False,
+    bucket: str | None = None,
 ) -> CholeskyFactor:
     """Fully device-resident level-scheduled factorization: each (level x
     bucket) group is ONE fused dispatch, and with ``staging='async'`` (the
@@ -511,10 +512,15 @@ def _factorize_levels_device(
     fill), so ``Aperm`` may be None.  ``guard`` ('raise' or 'perturb') runs
     the guarded kernel and reduces its status into ``guard_report``.
 
-    The bucket family is the coarse power-of-two ``"fused"`` one: the fused
-    kernel masks pad lanes, identity slabs and beyond-tail SYRK tiles, and
-    its plain version keeps the same masked semantics, so the card and the
-    CPU run the same plan.
+    ``bucket`` names the schedule family; None picks the reference's: the
+    coarse power-of-two ``"fused"`` one with fused groups (the fused kernel
+    masks pad lanes, identity slabs and beyond-tail SYRK tiles, and its
+    plain version keeps the same masked semantics, so the card and the CPU
+    run the same plan), the fine ``"batch"`` one for the three-dispatch
+    oracle of an engine without fused groups.  ``bucket="fused"`` runs the
+    oracle on the one-dispatch path's own schedule, where the two agree bit
+    for bit; on ``"batch"`` the other grouping of the prefix sums moves the
+    factor by rounding at the scale of their running totals.
 
     Its phases are ``torch.profiler`` ranges (``factor.fill``,
     ``factor.stage``, ``factor.levels``, ``factor.read_back``), cheap when
@@ -526,7 +532,8 @@ def _factorize_levels_device(
     if store is None:
         with record_function("factor.fill"):
             store = init_panel_store(sym, Aperm)
-    bucket = "fused"
+    if bucket is None:
+        bucket = "fused" if device_engine.fused_groups else "batch"
     sched = cached_schedule(sym, max_batch=max_batch, bucket=bucket)
     with record_function("factor.stage"):
         dstore = DevicePanelStore(device_engine, sym, sched, store.storage,
@@ -538,7 +545,7 @@ def _factorize_levels_device(
         "assembly": "device",
         "staging": dstore.staging,
         "bucket": bucket,
-        "dispatches_per_group": 1,
+        "dispatches_per_group": 1 if dstore.fused else 3,
         "supernodes_on_device": sym.nsuper,
         "supernodes_total": sym.nsuper,
         "schedule": sched.batch_stats(),
@@ -699,6 +706,8 @@ def factorize_levels_device_many(
 
     device_engine.reset_events()
     M = int(storage.shape[0])
+    if not device_engine.fused_groups:
+        raise ValueError("multi-matrix factorization requires fused groups")
     bucket = "fused"
     sched = cached_schedule(sym, max_batch=max_batch, bucket=bucket)
     with record_function("factor.stage"):

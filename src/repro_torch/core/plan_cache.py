@@ -227,14 +227,9 @@ class CachedPlan:
         envelope digest no longer matches the payload), or — with
         ``expect_key`` — a plan for a different sparsity pattern.  These
         fail HERE with a clear error instead of deep in factorize_levels.
-        ``lint=True`` would run the static analyzer's plan lint over the
-        loaded plan; the analyzer is not ported yet, so it raises
-        NotImplementedError."""
-        if lint:
-            raise NotImplementedError(
-                "CachedPlan.load(lint=True) needs the plan lint of the static "
-                "analyzer, which is not ported yet (ROADMAP queue 1, item 11)"
-            )
+        ``lint=True`` additionally runs the plan lint
+        (``repro_torch.analyze.plan_lint``) over the loaded plan and raises
+        ValueError on an error finding."""
         with open(path, "rb") as f:
             envelope = pickle.load(f)
         if not isinstance(envelope, dict) or envelope.get("format") != FORMAT:
@@ -268,11 +263,25 @@ class CachedPlan:
                 f"plan file {path} holds pattern fingerprint {key}, "
                 f"expected {expect_key} — wrong plan for this matrix"
             )
-        return CachedPlan(
+        plan = CachedPlan(
             key=key, sym=payload["sym"],
             fill_src=payload["fill_src"], fill_dst=payload["fill_dst"],
             n=payload["n"], nnz=payload["nnz"],
         )
+        if lint:
+            from repro_torch.analyze.plan_lint import lint_plan_stack
+
+            warmed = sorted({k[2] for k in (plan.sym.schedules or {})})
+            findings = lint_plan_stack(
+                plan.sym, buckets=tuple(warmed),
+                fill=(plan.fill_src, plan.fill_dst), nnz=plan.nnz,
+            )
+            errors = [f for f in findings if f.severity == "error"]
+            if errors:
+                raise ValueError(
+                    f"plan file {path} failed plan lint: {errors[0]}"
+                )
+        return plan
 
 
 def _plan_nbytes(plan: CachedPlan) -> int:

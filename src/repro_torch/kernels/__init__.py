@@ -18,6 +18,7 @@ blocked ``potrf`` routine is ``ops.potrf``).  A wrapper
 runs the plain version for a CPU tensor and launches its kernel, or raises,
 for a CUDA tensor.  ``_build`` compiles ``csrc/*.cu`` at first use.
 """
+from repro_torch.kernels._build import KernelBuildError
 from repro_torch.kernels.fused import (
     fused_factor_syrk,
     fused_factor_syrk_guarded,
@@ -44,7 +45,7 @@ from repro_torch.kernels.trsm import (
 KERNELS = (fused_factor_syrk, tri_inv_lower, trsm_rlt, chol_tile, syrk_ln,
            gemm_nt, fused_factor_syrk_guarded)
 
-__all__ = ["fused_factor_syrk", "fused_factor_syrk_ref",
+__all__ = ["KernelBuildError", "fused_factor_syrk", "fused_factor_syrk_ref",
            "fused_factor_syrk_guarded", "fused_factor_syrk_guarded_ref",
            "live_cells",
            "tri_inv_lower",

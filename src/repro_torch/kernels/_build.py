@@ -9,6 +9,10 @@ Nothing but the repository's sources, ``nvcc`` and the CUDA runtime is
 needed.  Nothing here
 runs at import time: the CPU tests import every module of the port and never
 build a library.
+
+A kernel that cannot be built or loaded raises ``KernelBuildError``: a
+broken installation, which the engine's fallback chain never absorbs (a
+failed launch raises a plain ``RuntimeError``).
 """
 from __future__ import annotations
 
@@ -63,6 +67,10 @@ SIGNATURES = {
 _LIBS: dict = {}
 
 
+class KernelBuildError(RuntimeError):
+    """``nvcc`` is missing or failed, or a built library cannot be loaded."""
+
+
 def nvcc() -> str:
     """Path of ``nvcc``: ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
     then ``PATH``."""
@@ -71,7 +79,8 @@ def nvcc() -> str:
             return str(Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+        raise KernelBuildError(
+            "nvcc not found: the CUDA kernels cannot be built")
     return found
 
 
@@ -114,7 +123,7 @@ def build(names=None) -> dict:
             continue
         os.replace(tmp, out)
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(
+        raise KernelBuildError("nvcc failed:\n" + "\n".join(
             f"--- {n} ---\n{text}" for n, text in failed))
     return secs
 
@@ -127,7 +136,11 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         if not library_path(name).exists():
             build()
-        lib = ctypes.CDLL(str(library_path(name)))
+        try:
+            lib = ctypes.CDLL(str(library_path(name)))
+        except OSError as e:
+            raise KernelBuildError(
+                f"cannot load the {name} kernels: {e}") from e
         for fn, (argtypes, restype) in SIGNATURES[name].items():
             f = getattr(lib, fn)
             f.argtypes = argtypes
@@ -137,7 +150,8 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check(lib: ctypes.CDLL, error_fn: str, code: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error code."""
+    """Raise (a ``RuntimeError``: a failed launch, not a build error) if a
+    C entry point returned a CUDA error code."""
     if code != 0:
         msg = getattr(lib, error_fn)(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")

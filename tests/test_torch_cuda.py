@@ -830,3 +830,127 @@ def test_cholesky_many_perturb_one_clamping_matrix_matches_cpu(card):
     for i, Ai in enumerate(Ks):
         x = BG.factor(i).solve(b)
         assert np.linalg.norm(Ai @ x - b) <= 1e-10 * np.linalg.norm(b)
+
+
+# ---------------------------------------------------------------------------
+# the group fallback chain and the three-dispatch oracle on the card
+# ---------------------------------------------------------------------------
+def _storage(F):
+    return F.store.storage
+
+
+def test_failed_dispatch_steps_down_to_the_plain_tier(card):
+    from repro_torch.core import engines
+    from repro_torch.faults import FaultPlan
+
+    A = laplacian_3d(10)
+    clean = cholesky(A, device_engine=DeviceEngine(device=card),
+                     guard="raise")
+    eng = DeviceEngine(device=card)
+    eng.faults = FaultPlan(fail_dispatch=2)
+    steps = dict(engines.STEPS_DOWN)
+    n = fused_factor_syrk_guarded.launches
+    F = cholesky(A, device_engine=eng, guard="raise")
+    groups = F.stats["schedule"]["batches"]
+    assert eng.faults.fired[0][:2] == ("fail_dispatch", 2)
+    assert eng.fallbacks == {"plain": 1, "host": 0, "failed": 0}
+    assert engines.STEPS_DOWN["plain"] == steps["plain"] + 1
+    # the failed group launched no kernel; the plain tier ran it instead
+    assert fused_factor_syrk_guarded.launches == n + groups - 1
+    assert F.guard_report.ok
+    scale = np.max(np.abs(_storage(clean)))
+    assert np.max(np.abs(_storage(F) - _storage(clean))) <= 1e-10 * scale
+
+
+def test_plain_and_host_tiers_match_the_kernels(card):
+    from repro_torch.faults import FaultPlan
+
+    A = laplacian_3d(8)
+    clean = cholesky(A, device_engine=DeviceEngine(device=card))
+    scale = np.max(np.abs(_storage(clean)))
+    eng = DeviceEngine(device=card)
+    eng.faults = FaultPlan(fail_dispatch=1, fail_always=True)
+    F = cholesky(A, device_engine=eng)
+    groups = F.stats["schedule"]["batches"]
+    assert eng.fallbacks == {"plain": groups, "host": 0, "failed": 0}
+    assert np.max(np.abs(_storage(F) - _storage(clean))) <= 1e-10 * scale
+    # with the plain tier down too, every group reaches the host tier
+    eng = DeviceEngine(device=card)
+    eng.faults = FaultPlan(fail_dispatch=1, fail_always=True)
+
+    def plain_down(*_a, **_k):
+        raise RuntimeError("plain tier down")
+
+    eng._device_group = plain_down
+    F = cholesky(A, device_engine=eng)
+    assert eng.fallbacks == {"plain": groups, "host": groups, "failed": 0}
+    assert np.max(np.abs(_storage(F) - _storage(clean))) <= 1e-10 * scale
+    b = np.ones(A.shape[0])
+    assert np.linalg.norm(A @ F.solve(b, backend="device") - b) <= \
+        1e-10 * np.linalg.norm(b)
+
+
+def test_kernel_error_is_raised_not_served_on_the_card(card, monkeypatch):
+    from repro_torch.core import engines
+
+    def refused(*_a, **_k):
+        raise RuntimeError("wrapper refused the group")
+
+    monkeypatch.setattr(engines, "fused_factor_syrk", refused)
+    eng = DeviceEngine(device=card)
+    steps = dict(engines.STEPS_DOWN)
+    with pytest.raises(RuntimeError, match="refused"):
+        cholesky(laplacian_3d(6), device_engine=eng, guard="raise")
+    assert eng.fallbacks == {"plain": 0, "host": 0, "failed": 1}
+    assert engines.STEPS_DOWN == steps
+
+
+def test_kernel_build_error_is_not_absorbed_on_the_card(card, monkeypatch):
+    from repro_torch.core import engines
+    from repro_torch.kernels import KernelBuildError
+
+    def no_build(*_a, **_k):
+        raise KernelBuildError("nvcc not found")
+
+    monkeypatch.setattr(engines, "fused_factor_syrk", no_build)
+    eng = DeviceEngine(device=card)
+    with pytest.raises(KernelBuildError):
+        cholesky(laplacian_3d(6), device_engine=eng, guard="raise")
+    assert eng.fallbacks == {"plain": 0, "host": 0, "failed": 0}
+
+
+def test_three_dispatch_oracle_on_card(card):
+    A = laplacian_3d(12)
+    n = fused_factor_syrk.launches
+    eng3 = DeviceEngine(device=card, fused_groups=False)
+    F3 = cholesky(A, device_engine=eng3)
+    batches = F3.stats["schedule"]["batches"]
+    assert eng3.stats["device_calls"] == 3 * batches
+    assert fused_factor_syrk.launches == n + batches
+    F1 = cholesky(A, device_engine=DeviceEngine(device=card))
+    for p3, p1 in zip(F3.panels, F1.panels):
+        np.testing.assert_allclose(p3, p1, rtol=1e-12, atol=1e-12)
+    Fc = cholesky(A, device_engine=DeviceEngine(device="cpu",
+                                                fused_groups=False))
+    scale = np.max(np.abs(_storage(Fc)))
+    assert np.max(np.abs(_storage(F3) - _storage(Fc))) <= 1e-10 * scale
+
+
+def test_ordered_cumsum_repeats_bit_for_bit_on_card(card):
+    # torch.cumsum of one long fp64 row on the card changes its rounding
+    # from run to run; the group assembly's scan must not
+    from repro_torch.core.engines import ordered_cumsum
+
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(2, 3_000_000, dtype=torch.float64, device=card,
+                    generator=g)
+    for rows in (x[:1], x):
+        first = ordered_cumsum(rows)
+        assert all(torch.equal(ordered_cumsum(rows), first)
+                   for _ in range(10))
+        err = float((first - torch.cumsum(rows, 1)).abs().max())
+        assert err <= 1e-15 * float(rows.abs().sum(1).max())
+    A = laplacian_3d(16)
+    F1 = cholesky(A, device_engine=DeviceEngine(device=card))
+    F2 = cholesky(A, device_engine=DeviceEngine(device=card))
+    assert np.array_equal(_storage(F1), _storage(F2))

@@ -25,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(len(names), bad)
+print(" ".join(names), "|", bad)
 assert not bad, bad
 """
 
@@ -35,8 +35,13 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.split(" ", 1)
-    assert int(n) >= 15 and bad.strip() == "[]"
+    names, bad = out.stdout.split("|", 1)
+    names = set(names.split())
+    assert len(names) >= 15 and bad.strip() == "[]"
+    # the server, the fault injectors and the static analysis too
+    assert {"repro_torch.faults", "repro_torch.launch.serve",
+            "repro_torch.analyze.plan_lint", "repro_torch.analyze.hazards",
+            "repro_torch.analyze.cache_check"} <= names
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():
@@ -71,9 +76,10 @@ def test_entry_points_raise_without_a_card(no_card):
 
 
 def test_unported_routes_raise_not_implemented(tmp_path):
-    # the guard and the plan cache run now (tests/test_torch_guard.py,
-    # tests/test_torch_many.py): what is left are the reference's own
-    # errors, and the plan lint of the static analyzer (not ported yet)
+    # the guard, the plan cache and the plan lint run now
+    # (tests/test_torch_guard.py, tests/test_torch_many.py,
+    # tests/test_torch_analyze.py): what is left are the reference's own
+    # errors
     from repro_torch.core import CachedPlan, PlanCache
 
     A = laplacian_2d(6)
@@ -83,6 +89,6 @@ def test_unported_routes_raise_not_implemented(tmp_path):
         cholesky(A, device="cpu", guard="xx")
     with pytest.raises(ValueError):
         cholesky(A, device="cpu", method="xx")
-    path = PlanCache().get(A).save(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        CachedPlan.load(path, lint=True)
+    plan = PlanCache().get(A)
+    path = plan.save(tmp_path)
+    assert CachedPlan.load(path, lint=True).key == plan.key
