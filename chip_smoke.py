@@ -65,7 +65,18 @@ card:
    streams), each with what its plan fired and the exact fallbacks, and
    the cost of a step down a tier; (d) the stream of (a), 6 requests,
    with ``verify=True``; (e) the three-dispatch oracle on ``lap3d_40``;
-10. prints a ``kernels`` JSON line, the card's name and power limit, and the
+   (f) the static analysis, ``python -m repro_torch.analyze
+   --all-generators --strict --trace`` with its traced factorizations on
+   the card, and the kernel pass's resource model against
+   ``cudaFuncGetAttributes`` of every built kernel function and every
+   launch of ``lap3d_40``'s fused buckets;
+10. (g) the LM stack's serving path (it has no kernel of its own):
+   llama3.2-1b and mamba2-1.3b at their full published configs in bf16
+   with seeded random weights, 4 prompts of 512 tokens prefilled and 32
+   greedy decode steps, tokens/s and peak memory, decode held against a
+   fresh prefill within a bf16 bound; then the ten archs' smoke configs in
+   fp32 (TF32 off) on the card against the port's CPU run;
+11. prints a ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 numpy's BLAS runs one thread here unless ``OPENBLAS_NUM_THREADS`` is set.
@@ -1587,6 +1598,215 @@ def oracle_phase(mats):
     return rec
 
 
+def analyze_phase(build, sched) -> dict:
+    """(f) The static analysis on the card: ``python -m repro_torch.analyze
+    --all-generators --strict --trace`` (its main, in this process, so its
+    traced factorizations count), then the resource model
+    (``analyze.kernel_check``) against ``cudaFuncGetAttributes`` of every
+    built kernel function, and ``bucket_smem`` of every bucket of
+    ``lap3d_40``'s fused schedule against the built kernels: each launch's
+    static + dynamic shared bytes equal to the built function's
+    ``sharedSizeBytes`` + the dynamic bytes its launch sets, and its
+    threads within the function's ``maxThreadsPerBlock``."""
+    from repro_torch.analyze.__main__ import main as analyze_main
+    from repro_torch.analyze.kernel_check import (
+        KERNEL_FUNCS,
+        bucket_lanes,
+        bucket_smem,
+        built_mismatches,
+    )
+
+    t0 = time.perf_counter()
+    rc = analyze_main(["--all-generators", "--strict", "--trace"])
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"analyze --strict --trace exited {rc}")
+    attrs = {}
+    for lib in KERNEL_FUNCS:
+        rows = build.func_attrs(lib)
+        bad = built_mismatches(lib, rows)
+        if bad:
+            raise AssertionError(f"the resource model against {lib}: {bad}")
+        attrs.update((r["function"], r) for r in rows)
+    launches = 0
+    buckets = bucket_lanes(sched)
+    for (Lp, Wp), Bp in buckets.items():
+        for x in bucket_smem(Lp, Wp, Bp=Bp)["launches"]:
+            r = attrs[x["function"]]
+            if x["smem"] != r["static"] + r["dynamic"] or \
+                    x["threads"] > r["max_threads"]:
+                raise AssertionError(f"bucket ({Lp}, {Wp}) {x} against "
+                                     f"the built {r}")
+            launches += 1
+    if not buckets:
+        raise AssertionError("no bucket of the main path's schedule")
+    return {"analyze_s": round(secs, 3), "functions": len(attrs),
+            "buckets": len(buckets), "bucket_launches_checked": launches,
+            "attrs": {fn: [r["static"], r["dynamic"], r["threads"],
+                           r["max_threads"], r["regs"]]
+                      for fn, r in attrs.items()}}
+
+
+#: the LM phase: prompts, greedy decode steps, and the decode steps whose
+#: logits are held against a fresh prefill over the prompt plus the tokens
+#: fed so far (prompt + t tokens: an even length keeps mamba2's SSD chunks
+#: whole, as the reference's reshape needs)
+LM = dict(batch=4, prompt=512, steps=32, check=(2, 16, 32))
+#: bf16 has an 8-bit significand, a unit roundoff of 2**-8.  Decode and a
+#: fresh prefill round the same products in other shapes (one query row
+#: against a whole prompt), so each layer's residual update may differ by
+#: a few roundings; over L layers those add like a random walk.  Bound:
+#: max |decode - prefill| <= 4 sqrt(2L) 2**-8 max |prefill logits|.
+BF16_U = 2.0 ** -8
+#: fp32 card against the CPU, TF32 off: relative to the largest |value|
+FP32_REL = 1e-5
+
+
+def _rel(x, ref) -> float:
+    import torch
+
+    x, ref = x.float().cpu(), ref.float().cpu()
+    return float(torch.max(torch.abs(x - ref))
+                 / max(float(torch.max(torch.abs(ref))), 1e-30))
+
+
+def lm_full_width(arch: str, dev) -> dict:
+    """One full-width config (bf16, weights from a seeded generator on the
+    card): prefill LM["batch"] prompts of LM["prompt"] tokens, then
+    LM["steps"] greedy decode steps; tokens/s of each, the peak device
+    memory, and decode step t's logits against the last logits of a fresh
+    prefill over the prompt plus the t tokens fed."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_config(arch)
+    B, P, T = LM["batch"], LM["prompt"], LM["steps"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompt = torch.randint(0, cfg.vocab, (B, P), generator=gen, device=dev,
+                           dtype=torch.int32)
+    # warm-up: a short prefill and two decode steps (cuBLAS handles, the
+    # allocator), outside the timed runs
+    c = init_cache(cfg, B, 10, device=dev)
+    lg, c = model.prefill(prompt[:, :8], c)
+    for i in range(2):
+        lg, c = model.decode_step(prompt[:, 8 + i:9 + i], c, 8 + i)
+    torch.cuda.synchronize()
+
+    caches = init_cache(cfg, B, P + T, device=dev)
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(prompt, caches)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    fed, steps = [], []
+    t0 = time.perf_counter()
+    for t in range(T):
+        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+        fed.append(tok)
+        logits, caches = model.decode_step(tok, caches, P + t)
+        steps.append(logits)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not all(bool(torch.isfinite(x).all()) for x in steps):
+        raise AssertionError(f"{arch}: nonfinite decode logits")
+
+    tol_rel = 4 * (2 * cfg.n_layers) ** 0.5 * BF16_U
+    ratios = {}
+    for t in LM["check"]:
+        seq = torch.cat([prompt] + fed[:t], dim=1)
+        want, _ = model.prefill(seq, init_cache(cfg, B, P + t, device=dev))
+        ratios[t] = _rel(steps[t - 1], want) / tol_rel
+        if not ratios[t] <= 1.0:
+            raise AssertionError(
+                f"{arch}: decode step {t} against a fresh prefill: "
+                f"{ratios[t]:.3f} of the bf16 tolerance {tol_rel:.4g}")
+    del model, caches
+    torch.cuda.empty_cache()
+    return {"arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+            "vocab": cfg.vocab, "params": n_params, "batch": B,
+            "prompt": P, "steps": T, "init_s": round(init_s, 3),
+            "prefill_s": prefill_s, "decode_s": decode_s,
+            "prefill_tok_s": B * P / prefill_s,
+            "decode_tok_s": B * T / decode_s,
+            "peak_mem_gib": peak / 2 ** 30,
+            "cache_tol_rel": tol_rel, "cache_ratio": ratios}
+
+
+def lm_smoke_vs_cpu(arch: str, dev) -> dict:
+    """One arch's SMOKE config in fp32 on the card against the port's own
+    CPU run of the same weights: forward h, the loss, prefill logits and
+    one decode step's logits, each within FP32_REL of the largest |value|."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_cache, init_params
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    cpu = init_params(cfg, SEED, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(SEED)
+    B, S = 2, 64
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32))
+    fe = None
+    if cfg.frontend_tokens:
+        fe = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+
+    def run(model, d):
+        def on(x):
+            return None if x is None else x.to(d)
+
+        with torch.no_grad():
+            h, _, _ = model(on(toks), frontend=on(fe))
+            loss, _ = model.loss(on(toks), on(labels), frontend=on(fe))
+        lg, c = model.prefill(on(toks), init_cache(
+            cfg, B, S + 1, torch.float32, device=d), frontend=on(fe))
+        tok = torch.argmax(lg, -1)[:, None].to(torch.int32)
+        lg2, _ = model.decode_step(tok, c, S)
+        return {"h": h, "loss": loss, "prefill": lg, "decode": lg2}
+
+    want, got = run(cpu, "cpu"), run(card, dev)
+    errs = {k: _rel(got[k], want[k]) for k in want}
+    if not max(errs.values()) <= FP32_REL:
+        raise AssertionError(f"{arch} fp32 card vs CPU: {errs}")
+    return errs
+
+
+def lm_phase() -> dict:
+    """(g) The LM stack's serving path: llama3.2-1b and mamba2-1.3b at their
+    full published configs, then every arch's smoke config in fp32 against
+    the CPU.  fp32 matmuls run without TF32 from here on (PyTorch's default
+    keeps it off for matmuls; set explicitly): the 1e-5 comparison needs
+    fp32."""
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"full": [lm_full_width(a, DEV)
+                    for a in ("llama3.2-1b", "mamba2-1.3b")]}
+    out["smoke_fp32_vs_cpu"] = {a: lm_smoke_vs_cpu(a, DEV) for a in ARCHS}
+    out["smoke_worst_rel"] = max(max(e.values())
+                                 for e in out["smoke_fp32_vs_cpu"].values())
+    return out
+
+
 def entry_name(line: str) -> str:
     """The last name of the mangled entry function in a ptxas or SASS line
     (``_ZN<len><namespace><len><name>E...`` gives ``name``), with its
@@ -1770,6 +1990,29 @@ def main() -> None:
     print("oracle", json.dumps(rec), flush=True)
     print(f"(e) three-dispatch oracle launches: {counts} ({secs:.1f} s)",
           flush=True)
+    rec, secs, counts = run_path(fns, totals, lambda: analyze_phase(
+        _build, cached_schedule(mats["lap3d_40"][1], bucket="fused")))
+    print("analyze", json.dumps(rec), flush=True)
+    print(f"(f) analyze --strict --trace and the resource model: "
+          f"{rec['analyze_s']:.1f} s of analysis, launches {counts} "
+          f"({secs:.1f} s)", flush=True)
+    if not counts["fused_factor_syrk"] > 0:
+        raise AssertionError(f"analyze --trace launched no fused kernel: "
+                             f"{counts}")
+    # the LM stack has no kernel of its own: its path launches none of the
+    # solver's
+    rec, secs, counts = run_path(fns, totals, lm_phase)
+    print("lm", json.dumps(rec), flush=True)
+    for r in rec["full"]:
+        print(f"(g) {r['arch']}: {r['params'] / 1e9:.3f} B params, prefill "
+              f"{r['prefill_tok_s']:.0f} tok/s, decode "
+              f"{r['decode_tok_s']:.1f} tok/s, peak "
+              f"{r['peak_mem_gib']:.2f} GiB, decode vs fresh prefill "
+              f"{max(r['cache_ratio'].values()):.3f} of the bf16 tolerance "
+              f"({smi})", flush=True)
+    print(f"(g) ten smoke archs fp32 card vs CPU: worst "
+          f"{rec['smoke_worst_rel']:.3g} (tolerance {FP32_REL}); launches "
+          f"{counts} ({secs:.1f} s)", flush=True)
     print(f"launches over all paths: {totals}", flush=True)
     if min(totals.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {totals}")

@@ -25,8 +25,7 @@ from dataclasses import asdict, dataclass, field
 #: ascending badness; index = rank
 SEVERITIES = ("info", "inconclusive", "warning", "error")
 
-#: the reference's kernel pass comes with the port's Hopper resource model
-PASSES = ("plan-lint", "hazard", "cache")
+PASSES = ("plan-lint", "hazard", "kernel", "cache")
 
 
 def _rank(severity: str) -> int:

@@ -1,0 +1,15 @@
+"""granite-20b  [dense]  52L d_model=6144 48H (MQA kv=1) d_ff=24576
+vocab=49152 — llama-arch, code [arXiv:2405.04324; hf]"""
+from repro_torch.models.common import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-20b", family="dense",
+    n_layers=52, d_model=6144, n_heads=48, n_kv_heads=1, head_dim=128,
+    d_ff=24576, vocab=49152, act="gelu",
+)
+
+SMOKE = ModelConfig(
+    name="granite-20b-smoke", family="dense",
+    n_layers=2, d_model=128, n_heads=4, n_kv_heads=1, head_dim=32,
+    d_ff=256, vocab=512, act="gelu", q_chunk=64,
+)

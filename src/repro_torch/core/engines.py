@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.buckets import bucket_shape
+from repro_torch.device import resolve_device
 from repro_torch.faults import InjectedDispatchError
 from repro_torch.kernels import ops
 from repro_torch.kernels._build import KernelBuildError
@@ -103,21 +104,6 @@ def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
     tot = ordered_cumsum(part[:, :, -1])
     part[:, 1:] += tot[:, :-1, None]
     return part.reshape(M, nb * _SCAN)[:, :n]
-
-
-def resolve_device(device=None) -> torch.device:
-    """``torch.device`` for an entry point: ``"cuda"`` unless the caller asks
-    for another; a CUDA request without a card raises instead of running on
-    the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev} (want 'cuda' or 'cpu')")
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions on the host"
-        )
-    return dev
 
 
 @dataclass

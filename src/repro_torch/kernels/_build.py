@@ -30,6 +30,8 @@ FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+#: every library's resource query (csrc/tile.cuh's func_attrs)
+_ATTRS = ([_I, _I, _P, _P], _I)
 #: exported C functions of each library: name -> (argtypes, restype)
 SIGNATURES = {
     "fused_factor_syrk": {
@@ -39,28 +41,34 @@ SIGNATURES = {
             [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _I,
              _P], _I),
         "fused_factor_syrk_error": ([_I], ctypes.c_char_p),
+        "fused_factor_syrk_func_attrs": _ATTRS,
     },
     "tri_inv": {
         "tri_inv_lower_launch": (
             [_P, _I, _I, _P, _P, _I, _I, _I, _I, _P], _I),
         "tri_inv_lower_error": ([_I], ctypes.c_char_p),
+        "tri_inv_func_attrs": _ATTRS,
     },
     "gemm_nt": {
         "gemm_nt_launch": ([_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _P], _I),
         "gemm_nt_error": ([_I], ctypes.c_char_p),
+        "gemm_nt_func_attrs": _ATTRS,
     },
     "syrk_ln": {
         "syrk_ln_launch": ([_P, _I, _P, _I, _I, _I, _I, _P], _I),
         "syrk_ln_sub_launch": ([_P, _I, _P, _I, _I, _I, _I, _P], _I),
         "syrk_ln_error": ([_I], ctypes.c_char_p),
+        "syrk_ln_func_attrs": _ATTRS,
     },
     "chol_tile": {
         "chol_tile_launch": ([_P, _I, _P, _I, _I, _I, _P], _I),
         "chol_tile_error": ([_I], ctypes.c_char_p),
+        "chol_tile_func_attrs": _ATTRS,
     },
     "trsm_rlt": {
         "trsm_rlt_launch": ([_P, _I, _P, _I, _P, _I, _I, _I, _I, _P], _I),
         "trsm_rlt_error": ([_I], ctypes.c_char_p),
+        "trsm_rlt_func_attrs": _ATTRS,
     },
 }
 
@@ -155,6 +163,30 @@ def check(lib: ctypes.CDLL, error_fn: str, code: int, what: str) -> None:
     if code != 0:
         msg = getattr(lib, error_fn)(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def func_attrs(name: str) -> list:
+    """The kernel functions of library ``name`` as its ``<name>_func_attrs``
+    export lists them, each a dict: ``function``, ``static`` and
+    ``max_threads`` and ``regs`` (from ``cudaFuncGetAttributes`` on the
+    current CUDA device), and the ``dynamic`` shared bytes and ``threads``
+    its launches give it."""
+    import torch
+
+    lib = load(name)
+    device = torch.cuda.current_device()
+    fn = getattr(lib, f"{name}_func_attrs")
+    out, rows = (_I * 5)(), []
+    while True:
+        fname = ctypes.c_char_p()
+        code = fn(len(rows), device, out, ctypes.byref(fname))
+        if code == 1 and rows:  # cudaErrorInvalidValue: past the last
+            return rows
+        check(lib, next(f for f in SIGNATURES[name] if f.endswith("_error")),
+              code, f"{name}_func_attrs")
+        rows.append({"function": fname.value.decode(), "static": out[0],
+                     "max_threads": out[1], "regs": out[2],
+                     "dynamic": out[3], "threads": out[4]})
 
 
 def check_matrix(name: str, t, device) -> None:

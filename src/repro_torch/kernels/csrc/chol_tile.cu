@@ -235,3 +235,23 @@ extern "C" int chol_tile_launch(const double* A, int lda, double* L, int ldl,
 extern "C" const char* chol_tile_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The library's kernel functions for the resource query (tile.cuh's
+// func_attrs): out[5] for function i, its name in *name.
+extern "C" int chol_tile_func_attrs(int i, int device, int* out,
+                                    const char** name) {
+  static const FuncInfo fs[] = {
+      {(const void*)chol_tile_kernel<8>, "chol_tile_kernel<8>",
+       32 * Tile<8>::NW, Tile<8>::SMEM},
+      {(const void*)chol_tile_kernel<16>, "chol_tile_kernel<16>",
+       32 * Tile<16>::NW, Tile<16>::SMEM},
+      {(const void*)chol_tile_kernel<32>, "chol_tile_kernel<32>",
+       32 * Tile<32>::NW, Tile<32>::SMEM},
+      {(const void*)chol_tile_kernel<64>, "chol_tile_kernel<64>",
+       32 * Tile<64>::NW, Tile<64>::SMEM},
+      {(const void*)chol_tile_kernel<128>, "chol_tile_kernel<128>",
+       32 * Tile<128>::NW, Tile<128>::SMEM},
+  };
+  return func_attrs(fs, (int)(sizeof(fs) / sizeof(fs[0])), i, device, out,
+                    name);
+}

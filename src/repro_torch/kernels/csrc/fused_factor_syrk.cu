@@ -874,3 +874,22 @@ extern "C" int fused_factor_syrk_guarded_launch(
 extern "C" const char* fused_factor_syrk_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The library's kernel functions for the resource query (tile.cuh's
+// func_attrs): out[5] for function i, its name in *name.
+extern "C" int fused_factor_syrk_func_attrs(int i, int device, int* out,
+                                            const char** name) {
+  static const FuncInfo fs[] = {
+      {(const void*)mask_kernel, "mask_kernel", ENT, 0},
+      {(const void*)guard_init_kernel, "guard_init_kernel", ENT, 0},
+      {(const void*)panel_kernel<false>, "panel_kernel<false>", PNT,
+       PANEL_SMEM},
+      {(const void*)panel_kernel<true>, "panel_kernel<true>", PNT,
+       PANEL_SMEM_G},
+      {(const void*)guarded_slab_kernel, "guarded_slab_kernel", GNT, 0},
+      {(const void*)trailing_kernel, "trailing_kernel", DNT, DMMA_SMEM_BYTES},
+      {(const void*)syrk_kernel, "syrk_kernel", DNT, DMMA_SMEM_BYTES},
+  };
+  return func_attrs(fs, (int)(sizeof(fs) / sizeof(fs[0])), i, device, out,
+                    name);
+}

@@ -77,3 +77,14 @@ extern "C" int gemm_nt_launch(const double* A, int lda, const double* B,
 extern "C" const char* gemm_nt_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The library's kernel functions for the resource query (tile.cuh's
+// func_attrs): out[5] for function i, its name in *name.
+extern "C" int gemm_nt_func_attrs(int i, int device, int* out,
+                                  const char** name) {
+  static const FuncInfo fs[] = {
+      {(const void*)gemm_nt_kernel, "gemm_nt_kernel", DNT, DMMA_SMEM_BYTES},
+  };
+  return func_attrs(fs, (int)(sizeof(fs) / sizeof(fs[0])), i, device, out,
+                    name);
+}

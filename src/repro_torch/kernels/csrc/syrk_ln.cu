@@ -127,3 +127,17 @@ extern "C" int syrk_ln_sub_launch(const double* A, int lda, double* C,
 extern "C" const char* syrk_ln_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The library's kernel functions for the resource query (tile.cuh's
+// func_attrs): out[5] for function i, its name in *name.
+extern "C" int syrk_ln_func_attrs(int i, int device, int* out,
+                                  const char** name) {
+  static const FuncInfo fs[] = {
+      {(const void*)syrk_ln_kernel<false>, "syrk_ln_kernel<false>", DNT,
+       DMMA_SMEM_BYTES},
+      {(const void*)syrk_ln_kernel<true>, "syrk_ln_kernel<true>", DNT,
+       DMMA_SMEM_BYTES},
+  };
+  return func_attrs(fs, (int)(sizeof(fs) / sizeof(fs[0])), i, device, out,
+                    name);
+}

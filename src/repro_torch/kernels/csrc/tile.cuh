@@ -458,4 +458,36 @@ __device__ __forceinline__ void tri_inv64_doubling(const double* L,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Resource query: each library lists its kernel functions with the threads
+// and dynamic shared bytes its launches give them, and exports
+// <library>_func_attrs over that list for the static analysis's resource
+// model (repro_torch.analyze.kernel_check.KERNEL_FUNCS, same order).
+// ---------------------------------------------------------------------------
+struct FuncInfo {
+  const void* fn;
+  const char* name;
+  int threads;  // threads per block of its launches
+  int dyn;      // dynamic shared bytes of its launches
+};
+
+// For function i of fs: its name, and out = {static shared bytes, max
+// threads per block, registers per thread, dynamic shared bytes, threads}
+// (the first three from cudaFuncGetAttributes).  cudaErrorInvalidValue
+// past the last function.
+int func_attrs(const FuncInfo* fs, int n, int i, int device, int* out,
+               const char** name) {
+  if (i < 0 || i >= n) return (int)cudaErrorInvalidValue;
+  CHECK(cudaSetDevice(device));
+  cudaFuncAttributes a;
+  CHECK(cudaFuncGetAttributes(&a, fs[i].fn));
+  out[0] = (int)a.sharedSizeBytes;
+  out[1] = a.maxThreadsPerBlock;
+  out[2] = a.numRegs;
+  out[3] = fs[i].dyn;
+  out[4] = fs[i].threads;
+  *name = fs[i].name;
+  return 0;
+}
+
 }  // namespace

@@ -198,3 +198,16 @@ extern "C" int tri_inv_lower_launch(const double* L, int ldl, int lsl,
 extern "C" const char* tri_inv_lower_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The library's kernel functions for the resource query (tile.cuh's
+// func_attrs): out[5] for function i, its name in *name.
+extern "C" int tri_inv_func_attrs(int i, int device, int* out,
+                                  const char** name) {
+  static const FuncInfo fs[] = {
+      {(const void*)inv_diag_kernel, "inv_diag_kernel", INT, DIAG_SMEM},
+      {(const void*)level_t_kernel, "level_t_kernel", DNT, DMMA_SMEM_BYTES},
+      {(const void*)level_x_kernel, "level_x_kernel", DNT, DMMA_SMEM_BYTES},
+  };
+  return func_attrs(fs, (int)(sizeof(fs) / sizeof(fs[0])), i, device, out,
+                    name);
+}

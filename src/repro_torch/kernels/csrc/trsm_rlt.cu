@@ -180,3 +180,14 @@ extern "C" int trsm_rlt_launch(const double* B, int ldb, const double* L,
 extern "C" const char* trsm_rlt_error(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
+
+// The library's kernel functions for the resource query (tile.cuh's
+// func_attrs): out[5] for function i, its name in *name.
+extern "C" int trsm_rlt_func_attrs(int i, int device, int* out,
+                                   const char** name) {
+  static const FuncInfo fs[] = {
+      {(const void*)trsm_rlt_kernel, "trsm_rlt_kernel", TNT, TRSM_SMEM},
+  };
+  return func_attrs(fs, (int)(sizeof(fs) / sizeof(fs[0])), i, device, out,
+                    name);
+}

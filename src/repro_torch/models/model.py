@@ -1,0 +1,361 @@
+"""Decoder-only LM assembled from the mixer/FFN building blocks (port of
+``src/repro/models/model.py``).
+
+Layers are grouped into *segments*: maximal runs of a repeating layer
+pattern (period <= 8), as in the reference, which stacks each segment's
+parameters along a leading axis and runs them with ``lax.scan``.  Here each
+segment holds its layers as a ``ModuleList`` per pattern slot and the
+forward pass loops over them; caches keep the reference's layout (per
+segment, per slot, a leading layer axis), so a cache carries across.
+
+    dense llama-style : one segment  [attn+dense] x L
+    deepseek-v3       : [attn+dense] x 3, then [attn(MLA)+moe] x 58
+    mamba2            : [ssm] x 48
+    jamba             : [(ssm ssm ssm attn ssm ssm ssm ssm) with moe every
+                         2nd layer] x 9   (period-8 pattern)
+
+Weights keep the reference's ``(in, out)`` layout (``x @ w``).  The config's
+``remat``, ``unroll`` and ``gather_bf16`` change nothing in a forward pass;
+the backward pass (and ``train_step_fn``) comes with the training slice.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.common import (
+    ModelConfig,
+    chunked_cross_entropy,
+    gelu_mlp,
+    randn,
+    rms_norm,
+    swiglu,
+)
+
+
+class Params(nn.Module):
+    """A tree of parameters addressed like the reference's dicts
+    (``p["mixer"]["wq"]``): tensors become parameters, dicts sub-trees."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                self.add_module(k, Params(v))
+            else:
+                self.register_parameter(k, nn.Parameter(v,
+                                                        requires_grad=False))
+
+    def __getitem__(self, k):
+        return getattr(self, k)
+
+    def __contains__(self, k) -> bool:
+        return k in self._parameters or k in self._modules
+
+
+# ---------------------------------------------------------------------------
+# segments
+# ---------------------------------------------------------------------------
+def layer_specs(cfg: ModelConfig) -> list[tuple[str, str]]:
+    return [(cfg.layer_kind(i), cfg.ffn_kind(i)) for i in range(cfg.n_layers)]
+
+
+def build_segments(cfg: ModelConfig) -> list[tuple[tuple[tuple[str, str], ...], int]]:
+    kinds = layer_specs(cfg)
+    L = len(kinds)
+    segments = []
+    i = 0
+    while i < L:
+        best_p, best_r = 1, 1
+        for p in (1, 2, 4, 8):
+            if i + p > L:
+                break
+            pat = kinds[i:i + p]
+            r = 1
+            while i + p * (r + 1) <= L and kinds[i + p * r:i + p * (r + 1)] == pat:
+                r += 1
+            if p > 1 and r < 2:
+                continue  # an unrepeated multi-layer pattern
+            if p * r > best_p * best_r:
+                best_p, best_r = p, r
+        segments.append((tuple(kinds[i:i + best_p]), best_r))
+        i += best_p * best_r
+    return segments
+
+
+# ---------------------------------------------------------------------------
+# per-layer params / apply
+# ---------------------------------------------------------------------------
+def _dense_ffn_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(ff)
+    pd = cfg.param_dtype
+    if cfg.act == "swiglu":
+        return {
+            "w_gate": randn(gen, (d, ff), s_in, pd),
+            "w_up": randn(gen, (d, ff), s_in, pd),
+            "w_down": randn(gen, (ff, d), s_out, pd),
+        }
+    return {
+        "w_up": randn(gen, (d, ff), s_in, pd),
+        "w_down": randn(gen, (ff, d), s_out, pd),
+    }
+
+
+def layer_params(cfg: ModelConfig, spec: tuple[str, str],
+                 gen: torch.Generator) -> dict:
+    mixer, ffn = spec
+    ones = dict(dtype=cfg.param_dtype, device=gen.device)
+    p: dict = {"norm1": torch.ones((cfg.d_model,), **ones)}
+    if mixer == "attn":
+        p["mixer"] = (attn_mod.mla_params(cfg, gen) if cfg.mla
+                      else attn_mod.gqa_params(cfg, gen))
+    else:
+        p["mixer"] = ssm_mod.ssm_params(cfg, gen)
+    if ffn != "none":
+        p["norm2"] = torch.ones((cfg.d_model,), **ones)
+        p["ffn"] = (moe_mod.moe_params(cfg, gen) if ffn == "moe"
+                    else _dense_ffn_params(cfg, gen))
+    return p
+
+
+def apply_layer(cfg: ModelConfig, spec: tuple[str, str], p, x: torch.Tensor,
+                positions: torch.Tensor, cache: dict | None, cache_len):
+    """Returns (x, new_cache_dict_or_None, aux_loss)."""
+    mixer, ffn = spec
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    new_cache = None
+    if mixer == "attn":
+        kv = None
+        if cache is not None:
+            kv = attn_mod.KVCache(k=cache["k"], v=cache["v"], length=cache_len)
+        fwd = attn_mod.mla_forward if cfg.mla else attn_mod.gqa_forward
+        out, kv2 = fwd(cfg, p["mixer"], h, positions, kv)
+        if kv2 is not None:
+            new_cache = {"k": kv2.k, "v": kv2.v}
+        elif cache is not None:
+            new_cache = {"k": cache["k"], "v": cache["v"]}
+    else:
+        sc = None
+        if cache is not None:
+            sc = ssm_mod.SSMCache(conv=cache["conv"], state=cache["state"],
+                                  length=cache_len)
+        out, sc2 = ssm_mod.ssm_forward(cfg, p["mixer"], h, sc)
+        if sc2 is not None:
+            new_cache = {"conv": sc2.conv, "state": sc2.state}
+        elif cache is not None:
+            new_cache = {"conv": cache["conv"], "state": cache["state"]}
+    x = x + out.to(x.dtype)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if ffn != "none":
+        h2 = rms_norm(x, p["norm2"], cfg.norm_eps)
+        f = p["ffn"]
+        if ffn == "moe":
+            out2, aux = moe_mod.moe_forward(cfg, f, h2)
+        elif cfg.act == "swiglu":
+            out2 = swiglu(h2, f["w_gate"], f["w_up"], f["w_down"])
+        else:
+            out2 = gelu_mlp(h2, f["w_up"], f["w_down"])
+        x = x + out2.to(x.dtype)
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# cache construction
+# ---------------------------------------------------------------------------
+def layer_cache_init(cfg: ModelConfig, spec: tuple[str, str], batch: int,
+                     max_len: int, dtype, device=None) -> dict:
+    mixer, _ = spec
+    if mixer == "attn":
+        kv = (attn_mod.mla_cache_init if cfg.mla else
+              attn_mod.gqa_cache_init)(cfg, batch, max_len, dtype, device)
+        return {"k": kv.k, "v": kv.v}
+    sc = ssm_mod.ssm_cache_init(cfg, batch, dtype, device)
+    return {"conv": sc.conv, "state": sc.state}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> list:
+    """Per segment, per slot, each cache array with a leading layer axis."""
+    dev = resolve_device(device)
+    caches = []
+    for pattern, r in build_segments(cfg):
+        seg = {}
+        for si, spec in enumerate(pattern):
+            one = layer_cache_init(cfg, spec, batch, max_len, dtype, dev)
+            seg[f"slot{si}"] = {k: a[None].expand((r,) + a.shape).clone()
+                                for k, a in one.items()}
+        caches.append(seg)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# full model
+# ---------------------------------------------------------------------------
+class LanguageModel(nn.Module):
+    """The LM: its parameters (made from ``generator``, on ``device``) and
+    the segment plan.  ``layers[si][f"slot{j}"][li]`` is layer ``li`` of
+    segment ``si``'s pattern slot ``j`` (the reference's
+    ``params["segments"][si][f"slot{j}"]`` at index ``li``)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = generator if generator is not None else \
+            torch.Generator(device=dev).manual_seed(0)
+        if gen.device.type != dev.type:
+            raise ValueError(f"generator on {gen.device}, model on {dev}")
+        self.cfg = cfg
+        self.segments = build_segments(cfg)
+        pd = cfg.param_dtype
+        self.embed = nn.Parameter(randn(gen, (cfg.vocab, cfg.d_model), 0.02,
+                                        pd), requires_grad=False)
+        self.head = nn.Parameter(randn(gen, (cfg.d_model, cfg.vocab),
+                                       1.0 / math.sqrt(cfg.d_model), pd),
+                                 requires_grad=False)
+        self.final_norm = nn.Parameter(
+            torch.ones((cfg.d_model,), dtype=pd, device=dev),
+            requires_grad=False)
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({
+                f"slot{slot}": nn.ModuleList(
+                    Params(layer_params(cfg, spec, gen)) for _ in range(r))
+                for slot, spec in enumerate(pattern)})
+            for pattern, r in self.segments)
+        if cfg.mtp_depth:
+            d = cfg.d_model
+            self.mtp = Params({
+                "proj": randn(gen, (2 * d, d), 1.0 / math.sqrt(2 * d), pd),
+                "norm_h": torch.ones((d,), dtype=pd, device=dev),
+                "norm_e": torch.ones((d,), dtype=pd, device=dev),
+                "block": layer_params(cfg, ("attn", "dense"), gen),
+            })
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    # ---- forward ----
+    def forward(self, tokens: torch.Tensor, *, frontend=None, caches=None,
+                cache_len=None, positions=None):
+        """tokens (B, S) -> (h (B, S, d), aux, new caches or None)."""
+        cfg = self.cfg
+        B, S = tokens.shape
+        x = self.embed[tokens].to(cfg.compute_dtype)
+        if frontend is not None:
+            F_ = frontend.shape[1]
+            x = torch.cat([frontend.to(x.dtype), x[:, F_:]], dim=1)
+        if positions is None:
+            base = cache_len if cache_len is not None else 0
+            positions = base + torch.arange(S, dtype=torch.int32,
+                                            device=x.device)[None, :]
+            positions = positions.expand(B, S)
+        clen = cache_len if cache_len is not None else 0
+
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        new_caches = [] if caches is not None else None
+        for si, (pattern, r) in enumerate(self.segments):
+            seg = self.layers[si]
+            seg_c = caches[si] if caches is not None else None
+            outs = {f"slot{j}": [] for j in range(len(pattern))}
+            for li in range(r):
+                for slot, spec in enumerate(pattern):
+                    name = f"slot{slot}"
+                    c = None if seg_c is None else \
+                        {k: a[li] for k, a in seg_c[name].items()}
+                    x, nc, a = apply_layer(cfg, spec, seg[name][li], x,
+                                           positions, c, clen)
+                    aux_total = aux_total + a
+                    outs[name].append(nc)
+            if seg_c is not None:
+                new_caches.append({
+                    name: {k: torch.stack([c[k] for c in cs])
+                           for k in cs[0]}
+                    for name, cs in outs.items()})
+        h = rms_norm(x, self.final_norm, cfg.norm_eps)
+        return h, aux_total, new_caches
+
+    # ---- losses / steps ----
+    def loss(self, tokens, labels, frontend=None):
+        """(total, {"ce", "aux"}): the forward value of the training loss."""
+        cfg = self.cfg
+        h, aux, _ = self.forward(tokens, frontend=frontend)
+        ce = chunked_cross_entropy(h, self.head.to(cfg.compute_dtype), labels,
+                                   unroll=cfg.unroll)
+        total = ce + 0.01 * aux
+        if cfg.mtp_depth:
+            total = total + 0.3 * self._mtp_loss(h, tokens, labels)
+        return total, {"ce": ce, "aux": aux}
+
+    def _mtp_loss(self, h, tokens, labels):
+        """deepseek-style multi-token prediction (depth 1): predict t+2 from
+        the main trunk's hidden state at t combined with the embedding of
+        t+1."""
+        cfg = self.cfg
+        mtp = self.mtp
+        B, S = tokens.shape
+        e_next = self.embed[tokens[:, 1:]].to(h.dtype)
+        hh = rms_norm(h[:, :-1], mtp["norm_h"], cfg.norm_eps)
+        ee = rms_norm(e_next, mtp["norm_e"], cfg.norm_eps)
+        z = torch.cat([hh, ee], dim=-1) @ mtp["proj"].to(h.dtype)
+        positions = torch.arange(S - 1, dtype=torch.int32,
+                                 device=h.device)[None].expand(B, S - 1)
+        z, _, _ = apply_layer(cfg, ("attn", "dense"), mtp["block"], z,
+                              positions, None, 0)
+        return chunked_cross_entropy(z, self.head.to(h.dtype), labels[:, 1:],
+                                     unroll=cfg.unroll)
+
+    @torch.no_grad()
+    def prefill(self, tokens, caches, frontend=None):
+        """Prompt tokens (B, S) into empty caches -> (last logits (B, V),
+        caches holding S positions)."""
+        h, _, new_caches = self.forward(tokens, frontend=frontend,
+                                        caches=caches, cache_len=0)
+        logits = h[:, -1] @ self.head.to(h.dtype)
+        return logits, new_caches
+
+    @torch.no_grad()
+    def decode_step(self, token, caches, cache_len):
+        """token: (B, 1) at position ``cache_len`` -> (logits (B, V), new
+        caches)."""
+        h, _, new_caches = self.forward(token, caches=caches,
+                                        cache_len=cache_len)
+        logits = h[:, -1] @ self.head.to(h.dtype)
+        return logits, new_caches
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:
+    """A ``LanguageModel`` whose weights are drawn from a ``torch.Generator``
+    seeded with ``seed`` on ``device`` (the card unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    return LanguageModel(cfg, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+
+
+# step functions: the reference's take the parameter tree first; the port's
+# take the LanguageModel, which holds the parameters
+def prefill_step_fn(cfg: ModelConfig):
+    def step(model: LanguageModel, batch: dict, caches):
+        if model.cfg != cfg:
+            raise ValueError("the model was built for another config")
+        return model.prefill(batch["tokens"], caches,
+                             frontend=batch.get("frontend"))
+
+    return step
+
+
+def decode_step_fn(cfg: ModelConfig):
+    def step(model: LanguageModel, token, caches, cache_len):
+        if model.cfg != cfg:
+            raise ValueError("the model was built for another config")
+        return model.decode_step(token, caches, cache_len)
+
+    return step
+

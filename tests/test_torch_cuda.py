@@ -12,11 +12,15 @@ mixed routes, the guarded levels path and ``cholesky_many`` — match the
 CPU run.  The guarded kernel is held against its plain version on groups
 with indefinite lanes and a zero pivot under large off-diagonals, with
 and without a clamp threshold; a negative pivot gives NaN on every
-factor kernel, never a hang or garbage."""
+factor kernel, never a hang or garbage.  The static analysis's resource
+model (``analyze.kernel_check.KERNEL_FUNCS``) equals what
+``cudaFuncGetAttributes`` reads from the built kernels, and smoke LM
+configs in fp32 on the card equal their CPU run."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.analyze.kernel_check import KERNEL_FUNCS, built_mismatches
 from repro_torch.core import (
     BreakdownError,
     DeviceEngine,
@@ -954,3 +958,46 @@ def test_ordered_cumsum_repeats_bit_for_bit_on_card(card):
     F1 = cholesky(A, device_engine=DeviceEngine(device=card))
     F2 = cholesky(A, device_engine=DeviceEngine(device=card))
     assert np.array_equal(_storage(F1), _storage(F2))
+
+
+# ---------------------------------------------------------------------------
+# the kernel pass's resource model and the LM stack on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("lib", sorted(KERNEL_FUNCS))
+def test_resource_model_matches_the_built_kernels(card, lib):
+    from repro_torch.kernels import _build
+
+    assert built_mismatches(lib, _build.func_attrs(lib)) == []
+
+
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v3-671b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_fp32_arch_on_card_matches_cpu(card, arch):
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_cache, init_params
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    cpu = init_params(cfg, 0, device="cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 32)).astype(np.int32))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 means fp32
+    try:
+        out = []
+        for model, dev in ((cpu, "cpu"), (gpu, card)):
+            with torch.no_grad():
+                h, _, _ = model(toks.to(dev))
+            lg, c = model.prefill(toks.to(dev), init_cache(
+                cfg, 2, 33, torch.float32, device=dev))
+            lg2, _ = model.decode_step(toks[:, :1].to(dev), c, 32)
+            out.append([h.cpu(), lg.cpu(), lg2.cpu()])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for want, got in zip(*out):
+        assert _rel(got, want) <= 1e-5

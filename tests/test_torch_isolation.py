@@ -38,10 +38,33 @@ def test_port_imports_neither_jax_nor_repro():
     names, bad = out.stdout.split("|", 1)
     names = set(names.split())
     assert len(names) >= 15 and bad.strip() == "[]"
-    # the server, the fault injectors and the static analysis too
+    # the server, the fault injectors and the static analysis too, its
+    # kernel pass and CLI, and the LM stack's models and configs
     assert {"repro_torch.faults", "repro_torch.launch.serve",
             "repro_torch.analyze.plan_lint", "repro_torch.analyze.hazards",
-            "repro_torch.analyze.cache_check"} <= names
+            "repro_torch.analyze.cache_check",
+            "repro_torch.analyze.kernel_check",
+            "repro_torch.analyze.__main__", "repro_torch.device",
+            "repro_torch.models.common", "repro_torch.models.attention",
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.models.model", "repro_torch.models.convert",
+            "repro_torch.configs.registry"} <= names
+    assert {f"repro_torch.configs.{m}" for m in (
+        "llama3_2_1b", "mamba2_1_3b", "deepseek_v3_671b",
+        "jamba_1_5_large_398b", "dbrx_132b", "granite_20b", "yi_6b",
+        "yi_9b", "llava_next_34b", "musicgen_large")} <= names
+
+
+def test_port_examples_import_neither_jax_nor_repro():
+    for name in ("torch_quickstart.py", "torch_pde_solve.py"):
+        tree = ast.parse((ROOT / "examples" / name).read_text())
+        mods = {m for node in ast.walk(tree)
+                for m in ([a.name for a in node.names]
+                          if isinstance(node, ast.Import) else
+                          [node.module] if isinstance(node, ast.ImportFrom)
+                          else [])}
+        assert mods and not {m for m in mods
+                             if m.split(".")[0] in ("jax", "repro")}, name
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():
