@@ -76,7 +76,17 @@ card:
    greedy decode steps, tokens/s and peak memory, decode held against a
    fresh prefill within a bf16 bound; then the ten archs' smoke configs in
    fp32 (TF32 off) on the card against the port's CPU run;
-11. prints a ``kernels`` JSON line, the card's name and power limit, and the
+11. (h) the LM stack's training path (no kernel of its own either):
+   ``launch.train.train`` at llama3.2-1b's and mamba2-1.3b's full configs
+   in fp32 (remat "full", batch 8 x 256, lr 1e-3; 10 and 4 steps): every
+   loss finite, llama3.2-1b's last three below its first, the step
+   seconds, tokens/s and peak memory, the state on the card; one
+   ``train_step_fn`` step of every smoke arch on the card against the CPU
+   (loss, gradients, parameters); the smoke llama preempted by SIGTERM
+   and resumed against an uninterrupted run, and whether that run and a
+   short dbrx run repeat bit for bit, as they are and (in a child
+   process) under deterministic algorithms;
+12. prints a ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 numpy's BLAS runs one thread here unless ``OPENBLAS_NUM_THREADS`` is set.
@@ -258,12 +268,15 @@ def check_launches(what: str, fn, want: int) -> dict:
     """The trace's launch count of one call against the slab formula, and
     the call's device time.  The tracer drops an event now and then (seen
     on the card: a guarded call traced 3 of its 6 launches in one session
-    and all 6 in the next), and a drop can only lower the count, so up to
-    three traces are taken and the highest count is held to the formula."""
+    and all 6 in the next; and once three sessions in a row with none of
+    a call's 10 launches), and a drop can only lower the count, so up to
+    six traces are taken and the highest count is held to the formula."""
     got, dev_ms = traced(fn)
-    for _ in range(2):
+    for _ in range(5):
         if got == want:
             break
+        if got == 0:  # a whole session dropped: give the tracer a moment
+            time.sleep(1.0)
         got, dev_ms = max((got, dev_ms), traced(fn))
     if got != want:
         raise AssertionError(f"{what}: {got} kernel launches in the trace, "
@@ -1807,6 +1820,253 @@ def lm_phase() -> dict:
     return out
 
 
+#: the training phase (h): the reference CLI's batch and sequence, its
+#: example's learning rate; steps of llama3.2-1b (h1) and mamba2-1.3b (h2)
+#: at full width, and of the smoke llama's preemption run (h4)
+TRAIN = dict(batch=8, seq=256, lr=1e-3, steps_llama=10, steps_mamba=4,
+             steps_resume=12, preempt_after=5)
+#: (h3) card against CPU after one step, fp32 with TF32 off: the loss;
+#: each gradient leaf relative to its largest |value|; each parameter
+#: within 1e-5 of its leaf's largest |value| plus what the gradient
+#: tolerance becomes through Adam's first update, lr g / (|g| + eps):
+#: 2 lr min(1, TRAIN_GRAD_REL max|g| / (|g| + eps)) per entry
+TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_REL = 1e-5, 1e-4, 1e-5
+#: (h4) the resumed run's losses against the uninterrupted run's
+RESUME_REL = 1e-6
+
+
+def train_full_width(arch: str, steps: int, dev) -> dict:
+    """(h1), (h2): ``launch.train.train`` at the full published config,
+    fp32, remat "full": every step's loss and seconds, tokens/s over the
+    steps from the third on, the peak device memory, where the parameters
+    and the optimizer state live."""
+    import torch
+
+    from repro_torch.launch.train import train
+
+    stamps = []
+
+    def on_step(step, loss):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(arch, smoke=False, steps=steps, batch=TRAIN["batch"],
+                seq=TRAIN["seq"], lr=TRAIN["lr"], device=dev, on_step=on_step)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    model, opt = out["params"], out["optimizer"]
+    step_s = [b - a for a, b in zip(stamps, stamps[1:])]
+    steady = sorted(step_s[1:])  # steps 3.. (the first two warm up)
+    med = steady[len(steady) // 2] if steady else float("nan")
+    devices = ({p.device.type for p in model.parameters()}
+               | {t.device.type for p in model.parameters()
+                  for t in opt.moments(p).values()})
+    losses = out["losses"]
+    rec = {"arch": arch, "params": sum(p.numel() for p in model.parameters()),
+           "remat": model.cfg.remat, "dtype": str(model.cfg.param_dtype),
+           "steps": steps, "losses": losses, "step_s": step_s,
+           "median_step_s": med,
+           "tok_s": TRAIN["batch"] * TRAIN["seq"] / med,
+           "total_s": total_s, "peak_mem_gib": peak / 2 ** 30,
+           "watchdog_warnings": out["straggler_warnings"],
+           "state_devices": sorted(devices)}
+    del model, opt, out
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: nonfinite training loss {losses}")
+    if devices != {torch.device(dev).type}:
+        raise AssertionError(f"{arch}: training state on {devices}")
+    return rec
+
+
+def _adam_bound(want, grad, lr: float, eps: float):
+    """Per entry: TRAIN_PARAM_REL of the leaf's largest |value| plus what
+    a gradient error of TRAIN_GRAD_REL max|g| becomes through Adam's first
+    update."""
+    import torch
+
+    g = grad.abs()
+    return (TRAIN_PARAM_REL * want.abs().max() + 2 * lr * torch.clamp(
+        TRAIN_GRAD_REL * g.max() / (g + eps), max=1.0))
+
+
+def train_step_vs_cpu(arch: str, dev) -> dict:
+    """(h3) One ``train_step_fn`` step of the smoke config in fp32 from the
+    same weights and batch on the card and on the CPU: the loss, every
+    gradient leaf, every parameter after the step."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, train_step_fn
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    cpu = init_params(cfg, SEED, device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(SEED)
+    B, S = 2, 64
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    if cfg.frontend_tokens:
+        batch["frontend"] = torch.from_numpy(rng.standard_normal(
+            (B, cfg.frontend_tokens, cfg.d_model)).astype(np.float32))
+    lr = TRAIN["lr"]
+    out = []
+    for model, d in ((cpu, "cpu"), (card, dev)):
+        opt = AdamW(model.param_groups(), lr=lr)
+        met = train_step_fn(cfg, opt)(model, {k: v.to(d)
+                                              for k, v in batch.items()})
+        out.append((float(met["loss"]), [p.grad.cpu() for p in
+                                         model.parameters()],
+                    [p.detach().cpu() for p in model.parameters()],
+                    opt.defaults["eps"]))
+    (loss_c, g_c, p_c, eps), (loss_g, g_g, p_g, _) = out
+    rec = {"loss_rel": abs(loss_g - loss_c) / abs(loss_c),
+           "grad_rel": max(_rel(a, b) for a, b in zip(g_g, g_c)),
+           "param_rel": max(_rel(a, b) for a, b in zip(p_g, p_c)),
+           "param_outside_1e-5": sum(
+               int(((a - b).abs() > TRAIN_PARAM_REL * b.abs().max()).sum())
+               for a, b in zip(p_g, p_c)),
+           "param_bound_ratio": max(
+               float(((a - b).abs() / _adam_bound(b, g, lr, eps)).max())
+               for a, b, g in zip(p_g, p_c, g_c))}
+    if not (rec["loss_rel"] <= TRAIN_LOSS_REL
+            and rec["grad_rel"] <= TRAIN_GRAD_REL
+            and rec["param_bound_ratio"] <= 1.0):
+        raise AssertionError(f"{arch} train step card vs CPU: {rec}")
+    return rec
+
+
+def _resume_kw(dev) -> dict:
+    n = TRAIN["steps_resume"]
+    return dict(smoke=True, steps=n, batch=TRAIN["batch"], seq=TRAIN["seq"],
+                lr=TRAIN["lr"], ckpt_every=4, device=dev, log_every=n)
+
+
+def repeats(dev, tmp: Path) -> dict:
+    """The smoke llama's uninterrupted run twice, and a short dbrx smoke
+    run twice (its MoE dispatch adds with ``index_add_`` in every layer):
+    their losses, and the warnings that name ops without a deterministic
+    kernel when ``torch.use_deterministic_algorithms`` is on."""
+    import warnings
+
+    from repro_torch.launch.train import train
+
+    kw = _resume_kw(dev)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = {"llama": [train("llama3.2-1b", ckpt_dir=str(tmp / f"r{i}"),
+                               **kw)["losses"] for i in range(2)],
+               "dbrx": [train("dbrx-132b", **dict(kw, steps=6))["losses"]
+                        for _ in range(2)]}
+    out["nondeterministic_ops"] = sorted({
+        str(w.message).split(" does not have")[0] for w in caught
+        if "deterministic" in str(w.message)})
+    return out
+
+
+def _deterministic_child(dev: str, tmp: str) -> None:
+    import torch
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    print("DET", json.dumps(repeats(dev, Path(tmp))), flush=True)
+
+
+def deterministic_repeats(dev, tmp: Path) -> dict:
+    """``repeats`` under ``torch.use_deterministic_algorithms``, in a child
+    process: cuBLAS repeats its sums there only with a fixed workspace
+    (``CUBLAS_WORKSPACE_CONFIG``), which must be set before CUDA starts
+    and would change the other phases' GEMMs."""
+    code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+            f"{str(ROOT / 'src')!r}]; import chip_smoke; "
+            f"chip_smoke._deterministic_child({str(dev)!r}, {str(tmp)!r})")
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=600, env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    lines = [ln for ln in out.stdout.splitlines() if ln.startswith("DET ")]
+    if out.returncode != 0 or not lines:
+        raise AssertionError(f"deterministic repeats: rc {out.returncode}\n"
+                             f"{out.stderr[-3000:]}")
+    return json.loads(lines[-1][4:])
+
+
+def resume_phase(dev, tmp: Path) -> dict:
+    """(h4) The smoke llama on the card: an uninterrupted run, and a run
+    preempted by SIGTERM after step ``preempt_after`` then resumed from
+    its checkpoint; the resumed losses against the uninterrupted run's.
+    Then whether runs repeat bit for bit (``repeats``), as they are and
+    under deterministic algorithms."""
+    import signal
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.launch.train import train
+
+    k, kw = TRAIN["preempt_after"], _resume_kw(dev)
+
+    def stop(step, loss):
+        if step == k:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    first = train("llama3.2-1b", ckpt_dir=str(tmp / "c"), on_step=stop, **kw)
+    if not (first["preempted"] and first["steps_done"] == k + 1
+            == latest_step(tmp / "c")):
+        raise AssertionError(f"preemption: {first['steps_done']}, "
+                             f"{latest_step(tmp / 'c')}")
+    resumed = train("llama3.2-1b", ckpt_dir=str(tmp / "c"), **kw)["losses"]
+    rep = repeats(dev, tmp / "plain")
+    det = deterministic_repeats(dev, tmp / "det")
+    whole = rep["llama"][0]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, whole[k + 1:]))
+    rec = {"losses": whole, "resumed": resumed, "resume_rel": rel,
+           "resume_bit_for_bit": resumed == whole[k + 1:],
+           "repeat_bit_for_bit": rep["llama"][0] == rep["llama"][1],
+           "deterministic_repeat_bit_for_bit":
+               det["llama"][0] == det["llama"][1],
+           "moe_repeat_rel": max(abs(a - b) / abs(b)
+                                 for a, b in zip(*rep["dbrx"])),
+           "moe_deterministic_repeat_bit_for_bit":
+               det["dbrx"][0] == det["dbrx"][1],
+           "nondeterministic_ops": det["nondeterministic_ops"]}
+    if not rel <= RESUME_REL:
+        raise AssertionError(f"resumed losses against the uninterrupted "
+                             f"run: {rel:.3g} > {RESUME_REL}")
+    return rec
+
+
+def train_phase() -> dict:
+    """(h) The LM stack's training path (no kernel of its own):
+    llama3.2-1b and mamba2-1.3b at their full published configs, one step
+    of every smoke arch on the card against the CPU, preemption and
+    resume.  fp32 without TF32, as phase (g) leaves it; cuDNN's TF32 off
+    too."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.configs import ARCHS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"full": [train_full_width("llama3.2-1b", TRAIN["steps_llama"],
+                                     DEV),
+                    train_full_width("mamba2-1.3b", TRAIN["steps_mamba"],
+                                     DEV)]}
+    llama = out["full"][0]["losses"]
+    if not np.mean(llama[-3:]) < llama[0]:
+        raise AssertionError(f"llama3.2-1b did not learn: {llama}")
+    out["step_vs_cpu"] = {a: train_step_vs_cpu(a, DEV) for a in ARCHS}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out["resume"] = resume_phase(DEV, Path(tmp))
+    return out
+
+
 def entry_name(line: str) -> str:
     """The last name of the mangled entry function in a ptxas or SASS line
     (``_ZN<len><namespace><len><name>E...`` gives ``name``), with its
@@ -2012,6 +2272,32 @@ def main() -> None:
               f"({smi})", flush=True)
     print(f"(g) ten smoke archs fp32 card vs CPU: worst "
           f"{rec['smoke_worst_rel']:.3g} (tolerance {FP32_REL}); launches "
+          f"{counts} ({secs:.1f} s)", flush=True)
+    # the training path: no kernel of its own either
+    rec, secs, counts = run_path(fns, totals, train_phase)
+    print("train", json.dumps(rec), flush=True)
+    for r in rec["full"]:
+        print(f"(h) {r['arch']}: {r['params'] / 1e9:.3f} B params, fp32, "
+              f"remat {r['remat']}, losses "
+              f"{', '.join(f'{x:.4f}' for x in r['losses'])}; median step "
+              f"{r['median_step_s']:.4f} s, {r['tok_s']:.0f} tok/s, peak "
+              f"{r['peak_mem_gib']:.2f} GiB, watchdog warnings "
+              f"{r['watchdog_warnings']}, state on {r['state_devices']} "
+              f"({smi})", flush=True)
+    worst = {k: max(v[k] for v in rec["step_vs_cpu"].values())
+             for k in ("loss_rel", "grad_rel", "param_rel",
+                       "param_bound_ratio")}
+    print(f"(h3) ten smoke archs, one train step card vs CPU: worst {worst}",
+          flush=True)
+    r = rec["resume"]
+    print(f"(h4) preempted after step {TRAIN['preempt_after']} and resumed: "
+          f"{r['resume_rel']:.3g} of the uninterrupted losses (bit for bit "
+          f"{r['resume_bit_for_bit']}; a repeat bit for bit "
+          f"{r['repeat_bit_for_bit']}, under deterministic algorithms "
+          f"{r['deterministic_repeat_bit_for_bit']}; dbrx's MoE repeat "
+          f"{r['moe_repeat_rel']:.3g}, deterministic bit for bit "
+          f"{r['moe_deterministic_repeat_bit_for_bit']}; ops without a "
+          f"deterministic kernel {r['nondeterministic_ops']}); launches "
           f"{counts} ({secs:.1f} s)", flush=True)
     print(f"launches over all paths: {totals}", flush=True)
     if min(totals.values()) <= 0:

@@ -85,9 +85,10 @@ class ModelConfig:
     q_chunk: int = 1024
     kv_chunk: int = 1024
 
-    # The reference's compile-time knobs (its layer-scan remat policy,
-    # unrolling the scan, gathering bf16 weights under FSDP): kept for field
-    # parity, they change nothing in the port's forward pass.
+    # remat: activation checkpointing of each repetition of a segment's
+    # pattern in training ("full" | "dots" | "none"; model.py).  unroll and
+    # gather_bf16, the reference's scan and FSDP knobs, are kept for field
+    # parity and change nothing on one card.
     remat: str = "full"
     unroll: bool = False
     gather_bf16: bool = False

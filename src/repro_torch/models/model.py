@@ -14,16 +14,29 @@ segment, per slot, a leading layer axis), so a cache carries across.
     jamba             : [(ssm ssm ssm attn ssm ssm ssm ssm) with moe every
                          2nd layer] x 9   (period-8 pattern)
 
-Weights keep the reference's ``(in, out)`` layout (``x @ w``).  The config's
-``remat``, ``unroll`` and ``gather_bf16`` change nothing in a forward pass;
-the backward pass (and ``train_step_fn``) comes with the training slice.
+Weights keep the reference's ``(in, out)`` layout (``x @ w``).  Parameters
+are built with ``requires_grad=False`` for serving; ``train_step_fn``'s step
+switches them on and differentiates ``loss`` with autograd.  In a forward
+pass that records gradients, ``cfg.remat`` checkpoints each repetition of a
+segment's pattern, as the reference's ``jax.checkpoint`` of its scan body
+does: ``"full"`` keeps only its input, ``"dots"`` also keeps the outputs of
+its matmuls without batch dimensions (``aten.mm``; the reference's
+``checkpoint_dots_with_no_batch_dims``), ``"none"`` keeps everything.  The
+three give equal gradients.  ``unroll`` and ``gather_bf16`` change nothing
+on one card.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -196,6 +209,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 # ---------------------------------------------------------------------------
+# activation checkpointing (cfg.remat)
+# ---------------------------------------------------------------------------
+def _save_dots(ctx, op, *args, **kwargs):
+    """Keep the outputs of matmuls without batch dimensions, recompute the
+    rest."""
+    return (CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+#: ``torch.utils.checkpoint`` arguments per ``cfg.remat``; another value
+#: checkpoints nothing, as in the reference
+_REMAT = {
+    "full": {},
+    "dots": {"context_fn": functools.partial(
+        create_selective_checkpoint_contexts, _save_dots)},
+}
+
+
+# ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
 class LanguageModel(nn.Module):
@@ -242,6 +274,15 @@ class LanguageModel(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
+    def param_groups(self) -> list[dict]:
+        """The parameters as ``optim.AdamW`` groups: the layers of the
+        segments (the reference stacks each along a leading layer axis, so
+        its decay rule counts one more axis for them) and the rest."""
+        stacked = list(self.layers.parameters())
+        ids = {id(p) for p in stacked}
+        return [{"params": [p for p in self.parameters() if id(p) not in ids]},
+                {"params": stacked, "stacked": True}]
+
     # ---- forward ----
     def forward(self, tokens: torch.Tensor, *, frontend=None, caches=None,
                 cache_len=None, positions=None):
@@ -261,19 +302,34 @@ class LanguageModel(nn.Module):
 
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         new_caches = [] if caches is not None else None
+        training = caches is None and torch.is_grad_enabled()
+        remat = _REMAT.get(cfg.remat) if training else None
         for si, (pattern, r) in enumerate(self.segments):
             seg = self.layers[si]
             seg_c = caches[si] if caches is not None else None
             outs = {f"slot{j}": [] for j in range(len(pattern))}
             for li in range(r):
-                for slot, spec in enumerate(pattern):
-                    name = f"slot{slot}"
-                    c = None if seg_c is None else \
-                        {k: a[li] for k, a in seg_c[name].items()}
-                    x, nc, a = apply_layer(cfg, spec, seg[name][li], x,
-                                           positions, c, clen)
-                    aux_total = aux_total + a
-                    outs[name].append(nc)
+                def body(x, aux, pattern=pattern, seg=seg, seg_c=seg_c,
+                         li=li):
+                    """One repetition of the pattern (the reference's scan
+                    body) -> (x, aux, {slot: new cache})."""
+                    ncs = {}
+                    for slot, spec in enumerate(pattern):
+                        name = f"slot{slot}"
+                        c = None if seg_c is None else \
+                            {k: a[li] for k, a in seg_c[name].items()}
+                        x, ncs[name], a = apply_layer(
+                            cfg, spec, seg[name][li], x, positions, c, clen)
+                        aux = aux + a
+                    return x, aux, ncs
+
+                if remat is None:
+                    x, aux_total, ncs = body(x, aux_total)
+                    for name, nc in ncs.items():
+                        outs[name].append(nc)
+                else:
+                    x, aux_total, _ = checkpoint(body, x, aux_total,
+                                                 use_reentrant=False, **remat)
             if seg_c is not None:
                 new_caches.append({
                     name: {k: torch.stack([c[k] for c in cs])
@@ -284,7 +340,7 @@ class LanguageModel(nn.Module):
 
     # ---- losses / steps ----
     def loss(self, tokens, labels, frontend=None):
-        """(total, {"ce", "aux"}): the forward value of the training loss."""
+        """(total, {"ce", "aux"}): the training loss, differentiable."""
         cfg = self.cfg
         h, aux, _ = self.forward(tokens, frontend=frontend)
         ce = chunked_cross_entropy(h, self.head.to(cfg.compute_dtype), labels,
@@ -341,6 +397,26 @@ def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:
 
 # step functions: the reference's take the parameter tree first; the port's
 # take the LanguageModel, which holds the parameters
+def train_step_fn(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
+    """``step(model, batch) -> {"loss", "ce", "aux"}``: zero the gradients,
+    differentiate ``model.loss`` (its parameters switched to
+    ``requires_grad``), and step ``optimizer``, which updates the model's
+    parameters in place."""
+    def step(model: LanguageModel, batch: dict) -> dict:
+        if model.cfg != cfg:
+            raise ValueError("the model was built for another config")
+        model.requires_grad_(True)
+        optimizer.zero_grad(set_to_none=True)
+        loss, metrics = model.loss(batch["tokens"], batch["labels"],
+                                   frontend=batch.get("frontend"))
+        loss.backward()
+        optimizer.step()
+        return {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+                "aux": metrics["aux"].detach()}
+
+    return step
+
+
 def prefill_step_fn(cfg: ModelConfig):
     def step(model: LanguageModel, batch: dict, caches):
         if model.cfg != cfg:

@@ -1,0 +1,4 @@
+"""The optimizer (port of ``src/repro/optim``)."""
+from repro_torch.optim.adamw import AdamW, cosine_schedule
+
+__all__ = ["AdamW", "cosine_schedule"]

@@ -15,7 +15,8 @@ and without a clamp threshold; a negative pivot gives NaN on every
 factor kernel, never a hang or garbage.  The static analysis's resource
 model (``analyze.kernel_check.KERNEL_FUNCS``) equals what
 ``cudaFuncGetAttributes`` reads from the built kernels, and smoke LM
-configs in fp32 on the card equal their CPU run."""
+configs in fp32 on the card equal their CPU run, in a forward pass and in
+a training step, and a preempted training run resumes on the card."""
 import numpy as np
 import pytest
 import torch
@@ -1001,3 +1002,83 @@ def test_fp32_arch_on_card_matches_cpu(card, arch):
         torch.backends.cuda.matmul.allow_tf32 = prev
     for want, got in zip(*out):
         assert _rel(got, want) <= 1e-5
+
+
+# ---------------------------------------------------------------------------
+# the LM stack's training path on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("arch", ["llama3.2-1b", "deepseek-v3-671b",
+                                  "mamba2-1.3b", "jamba-1.5-large-398b"])
+def test_train_step_on_card_matches_cpu(card, arch):
+    """One ``train_step_fn`` step from the same weights and batch: the
+    loss to 1e-5, each gradient leaf to 1e-4 of its largest magnitude, the
+    parameters to 1e-5 of theirs plus what that gradient tolerance becomes
+    through Adam's first update (2 lr min(1, 1e-4 max|g| / (|g| + eps)))."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_params, train_step_fn
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    cpu = init_params(cfg, 0, device="cpu")
+    gpu = copy.deepcopy(cpu).to(card)
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 32)).astype(
+        np.int32)) for k in ("tokens", "labels")}
+    lr = 1e-3
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 means fp32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = []
+        for model, dev in ((cpu, "cpu"), (gpu, card)):
+            opt = AdamW(model.param_groups(), lr=lr)
+            met = train_step_fn(cfg, opt)(
+                model, {k: v.to(dev) for k, v in batch.items()})
+            out.append((float(met["loss"]),
+                        [p.grad.cpu() for p in model.parameters()],
+                        [p.detach().cpu() for p in model.parameters()]))
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    (loss_c, g_c, p_c), (loss_g, g_g, p_g) = out
+    assert abs(loss_g - loss_c) <= 1e-5 * abs(loss_c)
+    for a, b in zip(g_g, g_c):
+        assert _rel(a, b) <= 1e-4
+    for a, b, g in zip(p_g, p_c, g_c):
+        bound = 1e-5 * b.abs().max() + 2 * lr * torch.clamp(
+            1e-4 * g.abs().max() / (g.abs() + 1e-8), max=1.0)
+        assert bool(((a - b).abs() <= bound).all())
+
+
+def test_preempted_training_resumes_on_card(card, tmp_path):
+    """SIGTERM after step 3 from ``on_step``: the run checkpoints and
+    returns, and the resumed run's losses equal an uninterrupted run's
+    within 1e-6."""
+    import os
+    import signal
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.launch.train import train
+
+    kw = dict(smoke=True, steps=8, batch=4, seq=64, ckpt_every=4,
+              device=card)
+    whole = train("llama3.2-1b", ckpt_dir=str(tmp_path / "a"), **kw)
+
+    def stop(step, loss):
+        if step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    out = train("llama3.2-1b", ckpt_dir=str(tmp_path / "b"), on_step=stop,
+                **kw)
+    assert out["preempted"] and out["steps_done"] == 4
+    assert latest_step(tmp_path / "b") == 4
+    rest = train("llama3.2-1b", ckpt_dir=str(tmp_path / "b"), **kw)
+    assert rest["steps_done"] == 8
+    np.testing.assert_allclose(out["losses"] + rest["losses"],
+                               whole["losses"], rtol=1e-6)

@@ -39,7 +39,8 @@ def test_port_imports_neither_jax_nor_repro():
     names = set(names.split())
     assert len(names) >= 15 and bad.strip() == "[]"
     # the server, the fault injectors and the static analysis too, its
-    # kernel pass and CLI, and the LM stack's models and configs
+    # kernel pass and CLI, the LM stack's models and configs, and its
+    # optimizer, data stream, checkpoints and training driver
     assert {"repro_torch.faults", "repro_torch.launch.serve",
             "repro_torch.analyze.plan_lint", "repro_torch.analyze.hazards",
             "repro_torch.analyze.cache_check",
@@ -48,7 +49,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.common", "repro_torch.models.attention",
             "repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.models.model", "repro_torch.models.convert",
-            "repro_torch.configs.registry"} <= names
+            "repro_torch.configs.registry",
+            # the training path
+            "repro_torch.optim.adamw", "repro_torch.data.pipeline",
+            "repro_torch.ckpt.checkpoint", "repro_torch.launch.train"} <= names
     assert {f"repro_torch.configs.{m}" for m in (
         "llama3_2_1b", "mamba2_1_3b", "deepseek_v3_671b",
         "jamba_1_5_large_398b", "dbrx_132b", "granite_20b", "yi_6b",
@@ -56,7 +60,8 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_port_examples_import_neither_jax_nor_repro():
-    for name in ("torch_quickstart.py", "torch_pde_solve.py"):
+    for name in ("torch_quickstart.py", "torch_pde_solve.py",
+                 "torch_train_lm.py"):
         tree = ast.parse((ROOT / "examples" / name).read_text())
         mods = {m for node in ast.walk(tree)
                 for m in ([a.name for a in node.names]
@@ -92,6 +97,17 @@ def test_entry_points_raise_without_a_card(no_card):
         DeviceEngine()
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
+    from repro_torch.ckpt import restore_checkpoint
+    from repro_torch.launch.train import train
+    from repro_torch.models import init_params
+    from repro_torch.configs import get_smoke_config
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(get_smoke_config("llama3.2-1b"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        restore_checkpoint("unused", 0, {})
     # asked for explicitly, the CPU runs
     F = cholesky(A, device="cpu")
     x = F.solve(np.ones(A.shape[0]), backend="device")
