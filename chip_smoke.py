@@ -86,7 +86,17 @@ card:
    and resumed against an uninterrupted run, and whether that run and a
    short dbrx run repeat bit for bit, as they are and (in a child
    process) under deterministic algorithms;
-12. prints a ``kernels`` JSON line, the card's name and power limit, and the
+12. (i) the LM stack on a device mesh of one rank (an NCCL group of world
+   size 1 on a hash store; no kernel of its own): (i1) (h1)'s llama3.2-1b
+   run again through the mesh path at (1, 1), every parameter and moment a
+   DTensor with the plan's placements, its losses equal to (h1)'s bit for
+   bit; (i2) dbrx-132b's MoE layer at its published widths (d_model 6,144,
+   16 experts top-4, d_ff 10,752) on 4 x 512 tokens in fp32, forward and
+   backward through ``moe_forward_local`` and through the global path,
+   output and gradients within 1e-5 of each one's largest, aux within
+   1e-6, each path's seconds and peak memory; (i3) (i1)'s state saved and
+   restored with ``shardings=``, bit for bit; the group destroyed;
+13. prints a ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 numpy's BLAS runs one thread here unless ``OPENBLAS_NUM_THREADS`` is set.
@@ -1835,11 +1845,12 @@ TRAIN_LOSS_REL, TRAIN_GRAD_REL, TRAIN_PARAM_REL = 1e-5, 1e-4, 1e-5
 RESUME_REL = 1e-6
 
 
-def train_full_width(arch: str, steps: int, dev) -> dict:
-    """(h1), (h2): ``launch.train.train`` at the full published config,
-    fp32, remat "full": every step's loss and seconds, tokens/s over the
-    steps from the third on, the peak device memory, where the parameters
-    and the optimizer state live."""
+def run_full_width(arch: str, steps: int, dev, **kw) -> tuple[dict, dict]:
+    """``launch.train.train`` at the full published config, fp32, remat
+    "full" (``kw``: more of its arguments): its result, and a record of
+    every step's loss and seconds, tokens/s over the steps from the third
+    on, the peak device memory, where the parameters and the optimizer
+    state live."""
     import torch
 
     from repro_torch.launch.train import train
@@ -1853,7 +1864,8 @@ def train_full_width(arch: str, steps: int, dev) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = train(arch, smoke=False, steps=steps, batch=TRAIN["batch"],
-                seq=TRAIN["seq"], lr=TRAIN["lr"], device=dev, on_step=on_step)
+                seq=TRAIN["seq"], lr=TRAIN["lr"], device=dev, on_step=on_step,
+                **kw)
     total_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     model, opt = out["params"], out["optimizer"]
@@ -1872,12 +1884,20 @@ def train_full_width(arch: str, steps: int, dev) -> dict:
            "total_s": total_s, "peak_mem_gib": peak / 2 ** 30,
            "watchdog_warnings": out["straggler_warnings"],
            "state_devices": sorted(devices)}
-    del model, opt, out
-    torch.cuda.empty_cache()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{arch}: nonfinite training loss {losses}")
     if devices != {torch.device(dev).type}:
         raise AssertionError(f"{arch}: training state on {devices}")
+    return rec, out
+
+
+def train_full_width(arch: str, steps: int, dev) -> dict:
+    """(h1), (h2): ``run_full_width``'s record; the state is freed."""
+    import torch
+
+    rec, out = run_full_width(arch, steps, dev)
+    del out
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -2065,6 +2085,289 @@ def train_phase() -> dict:
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         out["resume"] = resume_phase(DEV, Path(tmp))
     return out
+
+
+#: phase (i), the LM stack on a mesh of one rank: dbrx-132b's MoE layer at
+#: its published widths on 4 x 512 tokens (i2); output and each gradient
+#: within MESH_REL of its largest magnitude, aux within MESH_AUX
+MOE_TOKENS = (4, 512)
+MESH_REL, MESH_AUX = 1e-5, 1e-6
+
+
+def _gpu_rel(x, ref) -> float:
+    """max |x - ref| / max |ref| on the card (the (i2) leaves are GBs)."""
+    return float((x - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _placements_bad(model, opt, mesh) -> list:
+    """The parameters and moments that are not DTensors on the mesh's
+    device with the plan's placements: ``shardings_from_axes`` of the
+    reference's stacked trees, less a stacked leaf's leading layer axis."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch.steps import shardings_from_axes
+    from repro_torch.models.convert import _entries, reference_tree
+
+    def meta(ps, stacked):
+        return torch.empty(((len(ps),) if stacked else ())
+                           + tuple(ps[0].shape), device="meta")
+
+    def moments(ps, stacked):
+        return {k: meta([v] * len(ps), stacked)
+                for k, v in opt.moments(ps[0]).items()}
+
+    axes = model.param_axes()
+    plan = {"p": shardings_from_axes(mesh, reference_tree(model, meta), axes),
+            "mu": shardings_from_axes(
+                mesh, {"step": meta([torch.empty(())], False),
+                       "mu": reference_tree(model, moments)},
+                opt.state_axes(axes))["mu"]}
+
+    def want(tree, path, stacked):
+        for k in path:
+            tree = tree[k]
+        return tuple(Shard(p.dim - stacked) if isinstance(p, Shard) else p
+                     for p in tree)
+
+    bad = []
+    for path, ps, stacked in _entries(model):
+        for p in ps:
+            for what, t, pl in [("param", p, want(plan["p"], path, stacked))] \
+                    + [(k, m, want(plan["mu"], path + (k,), stacked))
+                       for k, m in opt.moments(p).items()]:
+                if not (isinstance(t, DTensor)
+                        and t.device.type == mesh.device_type
+                        and tuple(t.placements) == pl):
+                    bad.append(f"{path} {what}")
+    return bad
+
+
+def mesh_train(h1_losses: list, dev) -> tuple[dict, dict]:
+    """(i1) (h1)'s run through the mesh path at (1, 1): the same call with a
+    process group initialized, so the parameters and moments are DTensors;
+    its losses against (h1)'s, its placements against the plan's."""
+    from repro_torch.launch.mesh import make_host_mesh
+
+    rec, out = run_full_width("llama3.2-1b", TRAIN["steps_llama"], dev,
+                              mesh_shape=(1, 1))
+    bad = _placements_bad(out["params"], out["optimizer"],
+                          make_host_mesh((1, 1), device=dev))
+    losses = rec["losses"]
+    rec.update(h1_losses=h1_losses,
+               max_rel_vs_h1=max(abs(a - b) / abs(b)
+                                 for a, b in zip(losses, h1_losses)),
+               bit_for_bit=losses == h1_losses, placements_bad=bad[:5],
+               n_placed=sum(1 for _ in out["params"].parameters()))
+    if bad:
+        raise AssertionError(f"(i1) placements differ from the plan: "
+                             f"{bad[:5]}")
+    if losses != h1_losses:
+        raise AssertionError(f"(i1) mesh losses {losses} against (h1)'s "
+                             f"{h1_losses}")
+    return rec, out
+
+
+def mesh_moe(dev) -> dict:
+    """(i2) dbrx-132b's MoE layer at its published widths, fp32 (TF32 off),
+    on ``MOE_TOKENS`` tokens: forward and backward through
+    ``moe_forward_local`` on the (1, 1) mesh (expert weights DTensors laid
+    out by ``moe_axes``) and through the global path (the same storage as
+    plain tensors); output, aux and the gradients of x, router and each
+    expert weight held against each other.  Each path runs twice and the
+    second run is timed; the first path's gradients wait in host memory
+    while the second runs, so each path's peak is its own."""
+    import dataclasses
+
+    import torch
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import shardings_from_axes
+    from repro_torch.models.common import set_active_mesh, whole
+    from repro_torch.models.moe import (EXPERT_WEIGHTS, _moe_forward_global,
+                                        moe_axes, moe_forward, moe_params)
+
+    cfg = dataclasses.replace(get_config("dbrx-132b"), moe_impl="local",
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    mesh = make_host_mesh((1, 1), device=dev)
+    p = moe_params(cfg, gen)
+    plan = shardings_from_axes(mesh, p, moe_axes(cfg))
+    # the DTensors' storage serves both paths
+    pd = {k: distribute_tensor(p.pop(k), mesh, plan[k], src_data_rank=None)
+          for k in list(p)}
+    x = torch.randn(MOE_TOKENS + (cfg.d_model,), generator=gen, device=dev)
+    rec = {"d_model": cfg.d_model, "experts": cfg.moe_experts,
+           "top_k": cfg.moe_top_k, "moe_d_ff": cfg.moe_d_ff,
+           "tokens": MOE_TOKENS,
+           "expert_gb": sum(pd[k].numel() for k in EXPERT_WEIGHTS) * 4 / 1e9}
+
+    def run(name):
+        xl = x.clone().requires_grad_()
+        if name == "local":
+            leaves = {k: v.detach().requires_grad_() for k, v in pd.items()}
+            set_active_mesh(mesh)
+            try:
+                out, aux = moe_forward(cfg, {
+                    k: v if k in EXPERT_WEIGHTS else whole(v)
+                    for k, v in leaves.items()}, xl)
+            finally:
+                set_active_mesh(None)
+        else:
+            leaves = {k: v.to_local().detach().requires_grad_()
+                      for k, v in pd.items()}
+            out, aux = _moe_forward_global(cfg, leaves, xl)
+        ((out ** 2).sum() + aux).backward()
+        grads = {"x": xl.grad}
+        grads.update((k, v.grad.to_local() if name == "local" else v.grad)
+                     for k, v in leaves.items())
+        return out.detach(), float(aux.detach()), grads
+
+    res = {}
+    for name in ("local", "global"):
+        run(name)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, aux, grads = run(name)
+        torch.cuda.synchronize()
+        rec[f"{name}_s"] = time.perf_counter() - t0
+        rec[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if name == "local":
+            grads = {k: g.cpu() for k, g in grads.items()}
+        res[name] = (out, aux, grads)
+        del grads
+    (ol, al, gl), (og, ag, gg) = res["local"], res["global"]
+    rec["out_rel"] = _gpu_rel(ol, og)
+    rec["aux_abs"] = abs(al - ag)
+    rec["grad_rel"] = {k: _gpu_rel(gl[k].to(dev), gg[k]) for k in gg}
+    del res, gl, gg, pd
+    torch.cuda.empty_cache()
+    if not (rec["out_rel"] <= MESH_REL and rec["aux_abs"] <= MESH_AUX
+            and max(rec["grad_rel"].values()) <= MESH_REL):
+        raise AssertionError(f"(i2) local against global: {rec}")
+    return rec
+
+
+def mesh_restore(model, opt, dev, tmp: Path) -> dict:
+    """(i3) (i1)'s state saved in the checkpoint format, restored with
+    ``shardings=`` (the plan's placements on the (1, 1) mesh): each leaf a
+    DTensor with those placements, bit for bit the state on the card."""
+    import torch
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import shardings_from_axes
+    from repro_torch.launch.train import _state
+    from repro_torch.models.convert import reference_tree
+
+    mesh = make_host_mesh((1, 1), device=dev)
+    for p in model.parameters():
+        p.grad = None
+    t0 = time.perf_counter()
+    state = _state(model, opt)
+    t1 = time.perf_counter()
+    save_checkpoint(tmp, 1, state)
+    t2 = time.perf_counter()
+    del state
+    axes = model.param_axes()
+
+    def meta(ps, stacked):
+        return torch.empty(((len(ps),) if stacked else ())
+                           + tuple(ps[0].shape), device="meta")
+
+    example = {"params": reference_tree(model, meta),
+               "opt": {"step": torch.empty((), device="meta"),
+                       "mu": reference_tree(model, lambda ps, st: {
+                           k: meta([v] * len(ps), st)
+                           for k, v in opt.moments(ps[0]).items()})}}
+    plan = shardings_from_axes(mesh, example, {"params": axes,
+                                               "opt": opt.state_axes(axes)})
+    back = restore_checkpoint(tmp, 1, example, device=dev,
+                              shardings=_with_mesh(mesh, plan))
+    t3 = time.perf_counter()
+    # the state on the card, each leaf as (tensors, stacked), stacked as
+    # it is compared
+    live = {"params": reference_tree(model, lambda ps, st: (ps, st)),
+            "opt": {"step": ([opt.state["step"]], False),
+                    "mu": reference_tree(model, lambda ps, st: {
+                        k: ([opt.moments(p)[k] for p in ps], st)
+                        for k in opt.moments(ps[0])})}}
+    bad, n = [], 0
+    for got, want, pl in zip(_tree_leaves(back), _tree_leaves(live),
+                             _tree_leaves(plan)):
+        n += 1
+        want = _stack_local(*want)
+        if not (isinstance(got, DTensor) and tuple(got.placements) == pl
+                and torch.equal(got.to_local(), want.to(got.device))):
+            bad.append(n)
+    rec = {"leaves": n, "to_host_s": t1 - t0, "save_s": t2 - t1,
+           "restore_s": t3 - t2, "bad_leaves": bad[:5]}
+    del back
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"(i3) restored leaves differ: {rec}")
+    return rec
+
+
+def _stack_local(ps, stacked):
+    import torch
+
+    loc = [p.to_local() if hasattr(p, "to_local") else p for p in ps]
+    return torch.stack(loc) if stacked else loc[0]
+
+
+def _with_mesh(mesh, plan):
+    if isinstance(plan, dict):
+        return {k: _with_mesh(mesh, v) for k, v in plan.items()}
+    if isinstance(plan, list):
+        return [_with_mesh(mesh, v) for v in plan]
+    return (mesh, plan)
+
+
+def _tree_leaves(tree):
+    """Leaves in the checkpoint's order (sorted dict keys; a tuple is a
+    leaf)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _tree_leaves(tree[k])
+    elif isinstance(tree, list):
+        for t in tree:
+            yield from _tree_leaves(t)
+    else:
+        yield tree
+
+
+def mesh_phase(h1_losses: list) -> dict:
+    """(i) The LM stack on a mesh of one rank: an NCCL group of world size
+    1 on a hash store (no port), (i1) (h1)'s training run through the
+    DTensor path, (i2) dbrx-132b's MoE layer through ``moe_forward_local``
+    against the global path, (i3) (i1)'s state saved and restored with
+    ``shardings=``.  The group is destroyed at the end."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        rec, out = mesh_train(h1_losses, DEV)
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            rec = {"train": rec, "restore": mesh_restore(
+                out["params"], out["optimizer"], DEV, Path(tmp))}
+        del out
+        torch.cuda.empty_cache()
+        rec["moe"] = mesh_moe(DEV)
+    finally:
+        dist.destroy_process_group()
+    return rec
 
 
 def entry_name(line: str) -> str:
@@ -2298,6 +2601,30 @@ def main() -> None:
           f"{r['moe_repeat_rel']:.3g}, deterministic bit for bit "
           f"{r['moe_deterministic_repeat_bit_for_bit']}; ops without a "
           f"deterministic kernel {r['nondeterministic_ops']}); launches "
+          f"{counts} ({secs:.1f} s)", flush=True)
+    # the LM stack on a mesh of one rank: no kernel of its own either
+    rec, secs, counts = run_path(fns, totals, lambda: mesh_phase(
+        rec["full"][0]["losses"]))
+    print("mesh", json.dumps(rec), flush=True)
+    r = rec["train"]
+    print(f"(i1) llama3.2-1b at (1, 1) through DTensors: {r['n_placed']} "
+          f"parameters placed as planned, losses against (h1) max rel "
+          f"{r['max_rel_vs_h1']:.3g} (bit for bit {r['bit_for_bit']}); "
+          f"median step {r['median_step_s']:.4f} s, {r['tok_s']:.0f} tok/s, "
+          f"peak {r['peak_mem_gib']:.2f} GiB ({smi})", flush=True)
+    r = rec["moe"]
+    print(f"(i2) dbrx-132b MoE layer (d {r['d_model']}, {r['experts']} "
+          f"experts top-{r['top_k']}, d_ff {r['moe_d_ff']}; "
+          f"{r['expert_gb']:.1f} GB of experts) on {r['tokens']} tokens, "
+          f"forward + backward: local {r['local_s']:.3f} s, peak "
+          f"{r['local_peak_gib']:.2f} GiB; global {r['global_s']:.3f} s, "
+          f"peak {r['global_peak_gib']:.2f} GiB; out rel {r['out_rel']:.3g}, "
+          f"aux {r['aux_abs']:.3g}, grads rel max "
+          f"{max(r['grad_rel'].values()):.3g} ({smi})", flush=True)
+    r = rec["restore"]
+    print(f"(i3) {r['leaves']} leaves saved and restored with shardings=, "
+          f"bit for bit: to host {r['to_host_s']:.1f} s, save "
+          f"{r['save_s']:.1f} s, restore {r['restore_s']:.1f} s; launches "
           f"{counts} ({secs:.1f} s)", flush=True)
     print(f"launches over all paths: {totals}", flush=True)
     if min(totals.values()) <= 0:

@@ -13,8 +13,10 @@ version beside it in the same module:
              place (replaces src/repro/kernels/syrk.py::syrk_ln)
     gemm   — C = A B^T         (replaces src/repro/kernels/gemm.py::gemm_nt)
 
-``ops`` chains them into the sequential path's dense operations (the
-blocked ``potrf`` routine is ``ops.potrf``).  A wrapper
+``ops`` chains them into the sequential path's dense operations; the
+package's ``potrf`` is the blocked routine (``ops.potrf``), as in
+``repro.kernels``, and ``syrk_tile`` the fused kernel's SYRK tile width
+(``repro_torch.core.buckets``).  A wrapper
 runs the plain version for a CPU tensor and launches its kernel, or raises,
 for a CUDA tensor.  ``_build`` compiles ``csrc/*.cu`` at first use.
 """
@@ -41,6 +43,13 @@ from repro_torch.kernels.trsm import (
     trsm_rlt_ref,
 )
 
+from repro_torch.kernels import ops
+# the blocked routine, in place of the submodule's name (``repro.kernels``
+# binds ``potrf`` to ``ops.potrf`` as well)
+potrf = ops.potrf
+# last: ``repro_torch.core`` imports this package's wrappers
+from repro_torch.core.buckets import syrk_tile  # noqa: E402
+
 #: every kernel wrapper of the port (each has a ``launches`` counter)
 KERNELS = (fused_factor_syrk, tri_inv_lower, trsm_rlt, chol_tile, syrk_ln,
            gemm_nt, fused_factor_syrk_guarded)
@@ -52,4 +61,4 @@ __all__ = ["KernelBuildError", "fused_factor_syrk", "fused_factor_syrk_ref",
            "tri_inv_lower_ref", "trsm_rlt", "trsm_rlt_ref", "chol_tile",
            "chol_tile_ref", "potrf_ref", "syrk_ln", "syrk_ln_ref",
            "syrk_ln_sub", "syrk_ln_sub_ref",
-           "gemm_nt", "gemm_nt_ref", "KERNELS"]
+           "gemm_nt", "gemm_nt_ref", "KERNELS", "ops", "potrf", "syrk_tile"]

@@ -1,2 +1,4 @@
-"""Launchers of the port: the solver server (``repro_torch.launch.serve``)
-and the LM training driver (``repro_torch.launch.train``)."""
+"""Launchers of the port: the solver server (``repro_torch.launch.serve``),
+the LM training loop (``repro_torch.launch.train``), mesh construction
+(``repro_torch.launch.mesh``) and placements from logical axes
+(``repro_torch.launch.steps``)."""

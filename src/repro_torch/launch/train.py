@@ -1,5 +1,6 @@
 """Training driver with checkpoint/restart, preemption handling and a
-straggler watchdog (port of ``src/repro/launch/train.py``), on one card:
+straggler watchdog (port of ``src/repro/launch/train.py``), on one card or
+on a mesh:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch llama3.2-1b \\
         --steps 200 --batch 8 --seq 256 --ckpt-dir /tmp/ckpt [--device cpu]
@@ -14,8 +15,17 @@ straggler watchdog (port of ``src/repro/launch/train.py``), on one card:
     median step time (straggler detection).
 
 The config is forced to fp32 parameters and compute, as the reference's
-``train`` does.  The reference builds a host mesh and shardings here; on
-one card both are the identity, so only ``mesh_shape=(1, 1)`` runs.
+``train`` does.
+
+With a ``torch.distributed`` process group initialized (by the caller, one
+process per device), ``train`` runs on a ``mesh_shape`` (data, model) mesh
+over it, any shape whose product is the world size, (1, 1) included: as
+the reference does, it builds the mesh, resets the sharding rules, makes
+the mesh active, and lays the parameters and the optimizer state out by
+their logical axes (DTensors).  Each data rank trains on its contiguous
+rows of the same global batch, so the losses are the single device's.
+Without a group, (1, 1) is the single-device path and any other shape
+raises, as the reference's device check does.
 """
 from __future__ import annotations
 
@@ -30,12 +40,22 @@ import threading
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.ckpt import AsyncCheckpointer, latest_step, restore_checkpoint
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.data import make_train_iterator
 from repro_torch.device import resolve_device
-from repro_torch.models import init_params, train_step_fn
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.steps import place_model, shardings_from_axes
+from repro_torch.models import (
+    active_mesh,
+    init_params,
+    set_active_mesh,
+    set_mesh_rules,
+    train_step_fn,
+)
+from repro_torch.models.common import data_rank, data_size
 from repro_torch.models.convert import (
     from_reference_opt_state,
     load_reference_params,
@@ -68,6 +88,16 @@ class StepWatchdog:
         return slow
 
 
+def _any_rank(flag: bool, dev) -> bool:
+    """``flag`` on any rank of the process group: every rank stops at the
+    same step, whichever received the signal."""
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return flag
+    t = torch.tensor([int(flag)], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def _state(model, opt) -> dict:
     """The training state as the reference's checkpoint tree."""
     return {"params": to_reference_params(model),
@@ -95,19 +125,42 @@ def train(
     the trained ``LanguageModel`` (it holds the parameters) and its
     ``"optimizer"`` the ``AdamW`` that holds the optimizer state.
     ``grad_compression`` is accepted and unused, as in the reference."""
-    if tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh_shape {tuple(mesh_shape)}: multi-device training is not "
-            f"ported yet (ROADMAP.md, queue 2); one card runs (1, 1)")
     dev = resolve_device(device)
     cfg = get_smoke_config(arch) if smoke else get_config(arch)
     cfg = dataclasses.replace(cfg, param_dtype=torch.float32,
                               compute_dtype=torch.float32)
+    mesh = None
+    if dist.is_initialized() or tuple(mesh_shape) != (1, 1):
+        mesh = make_host_mesh(tuple(mesh_shape), device=dev)
+    n_dp = data_size(mesh)
+    r_dp = data_rank(mesh) if mesh is not None else 0
+    if batch % n_dp:
+        raise ValueError(f"batch {batch} does not divide over {n_dp} data "
+                         f"ranks")
+    rows = slice(r_dp * batch // n_dp, (r_dp + 1) * batch // n_dp)
+    prev_mesh = active_mesh()
+    if mesh is not None:
+        set_mesh_rules({})
+        set_active_mesh(mesh)
+    try:
+        return _train(cfg, mesh, rows, steps=steps, batch=batch, seq=seq,
+                      lr=lr, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                      log_every=log_every, seed=seed, on_step=on_step,
+                      dev=dev)
+    finally:
+        set_active_mesh(prev_mesh)
 
+
+def _train(cfg, mesh, rows: slice, *, steps, batch, seq, lr, ckpt_dir,
+           ckpt_every, log_every, seed, on_step, dev) -> dict:
     model = init_params(cfg, seed, device=dev)
+    if mesh is not None:
+        place_model(model, mesh)
     opt = AdamW(model.param_groups(),
                 lr=cosine_schedule(lr, warmup=max(steps // 20, 1), total=steps))
     start = 0
+    # one rank logs (every rank of a mesh computes the same losses)
+    lead = not dist.is_initialized() or dist.get_rank() == 0
 
     ckpt = None
     if ckpt_dir:
@@ -127,12 +180,22 @@ def train(
             example = {"params": reference_tree(model, shapes),
                        "opt": {"step": torch.empty((), device="meta"),
                                "mu": reference_tree(model, moment_shapes)}}
-            # restored in host memory, then copied into the model's tensors
-            state = restore_checkpoint(ckpt_dir, last, example, device="cpu")
+            if mesh is None:
+                # restored in host memory, then copied into the model
+                state = restore_checkpoint(ckpt_dir, last, example,
+                                           device="cpu")
+            else:  # laid out as the model and its moments, on any mesh
+                axes = model.param_axes()
+                state = restore_checkpoint(
+                    ckpt_dir, last, example, device=dev,
+                    shardings=shardings_from_axes(
+                        mesh, example, {"params": axes,
+                                        "opt": opt.state_axes(axes)}))
             load_reference_params(model, state["params"])
             from_reference_opt_state(model, opt, state["opt"])
             start = last
-            print(f"[train] resumed from step {last}", flush=True)
+            if lead:
+                print(f"[train] resumed from step {last}", flush=True)
 
     step_fn = train_step_fn(cfg, opt)
 
@@ -149,13 +212,16 @@ def train(
     wd = StepWatchdog()
     it = make_train_iterator(cfg.vocab, seq, batch, seed=seed, start_step=start)
     losses = []
-    log_path = pathlib.Path(ckpt_dir) / "metrics.jsonl" if ckpt_dir else None
+    log_path = (pathlib.Path(ckpt_dir) / "metrics.jsonl"
+                if ckpt_dir and lead else None)
     try:
         for step, hostbatch in it:
             if step >= steps:
                 break
             t0 = time.time()
-            b = {k: torch.from_numpy(v).to(dev) for k, v in hostbatch.items()}
+            # this data rank's rows of the global batch
+            b = {k: torch.from_numpy(v[rows]).to(dev)
+                 for k, v in hostbatch.items()}
             metrics = step_fn(model, b)
             loss = float(metrics["loss"])
             dt = time.time() - t0
@@ -163,19 +229,20 @@ def train(
             losses.append(loss)
             if on_step:
                 on_step(step, loss)
-            if step % log_every == 0:
+            if step % log_every == 0 and lead:
                 print(f"[train] step {step:5d} loss {loss:.4f} ({dt:.3f}s)", flush=True)
                 if log_path:
                     with log_path.open("a") as f:
                         f.write(json.dumps({"step": step, "loss": loss, "dt": dt}) + "\n")
             if ckpt and (step + 1) % ckpt_every == 0:
                 ckpt.save(step + 1, _state(model, opt))
-            if preempted.is_set():
+            if _any_rank(preempted.is_set(), dev):
                 if ckpt:
                     ckpt.save(step + 1, _state(model, opt))
                     ckpt.wait()
-                print(f"[train] checkpointed at step {step + 1}, exiting for restart",
-                      flush=True)
+                if lead:
+                    print(f"[train] checkpointed at step {step + 1}, "
+                          f"exiting for restart", flush=True)
                 return {"final_loss": losses[-1], "first_loss": losses[0],
                         "steps_done": step + 1, "preempted": True,
                         "losses": losses}

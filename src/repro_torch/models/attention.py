@@ -115,6 +115,15 @@ def gqa_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
 
 
+def gqa_axes() -> dict:
+    return {
+        "wq": ("embed", "heads"),
+        "wk": ("embed", "kv_heads"),
+        "wv": ("embed", "kv_heads"),
+        "wo": ("heads", "embed"),
+    }
+
+
 def gqa_forward(cfg: ModelConfig, p, x: torch.Tensor,
                 positions: torch.Tensor, cache: KVCache | None = None):
     B, S, d = x.shape
@@ -174,6 +183,17 @@ def mla_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
         "wk_b": randn(gen, (r_kv, H * dn), s(r_kv), pd),
         "wv_b": randn(gen, (r_kv, H * dv), s(r_kv), pd),
         "wo": randn(gen, (H * dv, d), s(H * dv), pd),
+    }
+
+
+def mla_axes() -> dict:
+    return {
+        "wq_a": ("embed", "lora"),
+        "wq_b": ("lora", "heads"),
+        "wkv_a": ("embed", "lora"),
+        "wk_b": ("lora", "heads"),
+        "wv_b": ("lora", "heads"),
+        "wo": ("heads", "embed"),
     }
 
 

@@ -1,10 +1,17 @@
 """Shared model substrate (port of ``src/repro/models/common.py``): config,
-norms, RoPE, the dense FFNs, chunked cross-entropy.
+logical-axis sharding on a ``torch.distributed`` device mesh, norms, RoPE,
+the dense FFNs, chunked cross-entropy.
 
-The reference's mesh machinery (``set_mesh_rules``, ``logical_sharding``,
-``shard``, ``active_mesh``) exists for multi-device sharding and comes with
-the port's multi-device slice; on one card ``shard`` is the identity, so
-nothing here calls it.
+Sharding.  The reference maps each tensor's logical axes to mesh axes by
+rules (``DEFAULT_RULES``) and lets GSPMD place the compute.  The port keeps
+the rules and resolves them to DTensor placements (``logical_sharding``)
+where tensors are made: parameters and optimizer state live on the mesh as
+DTensors, each layer's weights are gathered whole before use (``whole``:
+the FSDP all-gather, whose backward pass sums the gradient over the data
+axes and keeps this rank's shard), and a batch is split over the data axes
+(``"pod"``, ``"data"``), each data rank holding its contiguous rows.  Compute
+over ``"model"`` is replicated, except ``moe_forward_local``'s experts.  So
+``shard``, the reference's sharding constraint, is the identity here.
 
 Casts mirror the reference's: ``jnp.dot`` and ``jnp.einsum`` compute in
 their operands' common dtype (``dot``, ``einsum`` below promote the same
@@ -18,7 +25,9 @@ from dataclasses import dataclass
 from typing import Any
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 
 # ---------------------------------------------------------------------------
@@ -47,9 +56,10 @@ class ModelConfig:
     moe_every: int = 1             # MoE FFN every k-th layer (jamba: 2)
     first_dense_layers: int = 0    # deepseek: first k layers use dense FFN
     capacity_factor: float = 1.25
-    # 'global': sort-based dispatch.  'local' (the reference's replicated-
-    # routing expert parallelism) needs a mesh; without one, as on one card,
-    # it takes the global path, as the reference does.
+    # 'global': sort-based dispatch over the whole batch.  'local':
+    # replicated-routing expert parallelism over an active mesh's "model"
+    # axis (moe.moe_forward_local); without such a mesh it takes the global
+    # path, as the reference does.
     moe_impl: str = "global"
 
     # MLA (deepseek)
@@ -87,8 +97,9 @@ class ModelConfig:
 
     # remat: activation checkpointing of each repetition of a segment's
     # pattern in training ("full" | "dots" | "none"; model.py).  unroll and
-    # gather_bf16, the reference's scan and FSDP knobs, are kept for field
-    # parity and change nothing on one card.
+    # gather_bf16, the reference's scan and FSDP-payload knobs, are kept for
+    # field parity and change nothing here: the layers run in a Python loop,
+    # and a weight is gathered in its own dtype.
     remat: str = "full"
     unroll: bool = False
     gather_bf16: bool = False
@@ -163,6 +174,267 @@ class ModelConfig:
             if self.ffn_kind(i) == "moe":
                 dead += (self.moe_experts - self.moe_top_k) * mult * self.d_model * eff
         return self.n_params() - dead
+
+
+# ---------------------------------------------------------------------------
+# logical-axis sharding
+# ---------------------------------------------------------------------------
+# logical axis -> mesh axes.  'fsdp' rules shard the big weight dimension over
+# the data axis (ZeRO-3 style); 'tp' rules shard heads/ff/experts/vocab over
+# the model axis.  The pod axis extends data parallelism.
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_kv": None,          # long-context decode reshards the cache over this
+    "embed": "data",         # fsdp shard of weight d_model dims
+    "heads": "model",
+    "kv_heads": None,        # few kv heads: replicate
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",      # expert parallelism
+    "exp_cap": ("pod", "data"),  # expert capacity dim: shard tokens over data
+    "expert_mlp": None,
+    "vocab": "model",
+    "lora": None,
+    "ssm_inner": "model",
+    "ssm_state": None,
+    "act_embed": None,       # activation d_model dim
+}
+
+#: the mesh axes a batch is split over, outer first; the rest ("model")
+#: replicate the batch
+DATA_AXES = ("pod", "data")
+
+_MESH_RULES: dict[str, Any] = dict(DEFAULT_RULES)
+
+
+def set_mesh_rules(rules: dict[str, Any]) -> None:
+    global _MESH_RULES
+    _MESH_RULES = dict(DEFAULT_RULES)
+    _MESH_RULES.update(rules)
+
+
+def Mesh_Rules() -> dict[str, Any]:
+    return dict(_MESH_RULES)
+
+
+def _resolve(axes: tuple[str | None, ...], mesh) -> tuple:
+    """The reference's ``PartitionSpec`` entries for logical ``axes`` (a
+    mesh axis name, a tuple of them, or None per dim) over ``mesh``'s
+    ``mesh_dim_names`` (None: every rule's axes)."""
+    spec = []
+    names = set(mesh.mesh_dim_names) if mesh is not None else None
+    used: set = set()  # a mesh axis may shard at most one dim
+    for ax in axes:
+        if ax is None:
+            spec.append(None)
+            continue
+        m = _MESH_RULES.get(ax, None)
+        if m is None:
+            spec.append(None)
+            continue
+        cand = m if isinstance(m, tuple) else (m,)
+        kept = tuple(x for x in cand
+                     if (names is None or x in names) and x not in used)
+        used.update(kept)
+        if not kept:
+            spec.append(None)
+        elif len(kept) == 1:
+            spec.append(kept[0])
+        else:
+            spec.append(kept)
+    return tuple(spec)
+
+
+def spec_placements(spec: tuple, mesh) -> tuple:
+    """DTensor placements of a resolved spec: ``Shard(d)`` on each mesh dim
+    that shards tensor dim ``d``, ``Replicate()`` on the others.  A dim
+    sharded over several mesh axes (``("pod", "data")``) is split over
+    them outer first, which is the reference's order only while the tuple
+    is in mesh order; another order would need a strided shard."""
+    names = list(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, sp in enumerate(spec):
+        if sp is None:
+            continue
+        axes = sp if isinstance(sp, tuple) else (sp,)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {sp} of dim {d} is not in mesh order "
+                             f"{tuple(names)}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def logical_sharding(axes: tuple[str | None, ...], mesh) -> tuple:
+    """The placements over ``mesh``'s dims of a tensor with logical
+    ``axes`` (the reference returns a ``NamedSharding``)."""
+    return spec_placements(_resolve(axes, mesh), mesh)
+
+
+_ACTIVE_MESH = None
+
+
+def set_active_mesh(mesh) -> None:
+    """Install the mesh the model runs on (None = single device)."""
+    global _ACTIVE_MESH
+    _ACTIVE_MESH = mesh
+
+
+def active_mesh():
+    return _ACTIVE_MESH
+
+
+def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
+    """The reference's sharding constraint by logical axis names.  The
+    identity, with or without a mesh: the port lays tensors out where they
+    are made (parameters and optimizer state as DTensors, a batch split
+    over the data axes) and computes on local tensors, so there is no
+    compiler to steer."""
+    return x
+
+
+# ---------------------------------------------------------------------------
+# collectives over a mesh, with the backward passes the model needs
+# ---------------------------------------------------------------------------
+def data_axes(mesh) -> tuple[str, ...]:
+    """``mesh``'s dims that split the batch, outer first."""
+    return tuple(a for a in DATA_AXES if a in mesh.mesh_dim_names)
+
+
+def data_size(mesh) -> int:
+    """Number of data ranks (1 without a mesh)."""
+    n = 1
+    for a in (data_axes(mesh) if mesh is not None else ()):
+        n *= mesh.size(list(mesh.mesh_dim_names).index(a))
+    return n
+
+
+def data_rank(mesh) -> int:
+    """This rank's index among the data ranks, outer axis major: its rows
+    of a batch split over the data axes are the ``data_rank``-th block."""
+    r = 0
+    for a in data_axes(mesh):
+        r = r * mesh.size(list(mesh.mesh_dim_names).index(a)) \
+            + mesh.get_local_rank(a)
+    return r
+
+
+def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` summed over the ranks of ``mesh``'s dims ``axes`` (a copy)."""
+    x = x.clone()
+    for a in axes:
+        if mesh.size(list(mesh.mesh_dim_names).index(a)) > 1:
+            dist.all_reduce(x, group=mesh.get_group(a))
+    return x
+
+
+class _Redistribute(torch.autograd.Function):
+    """This rank's piece of a tensor laid out by ``placements`` -> its piece
+    under ``target``.  Backward: the incoming gradient is partial over the
+    data axes (each data rank saw its own rows) and equal over the others;
+    it is summed over the data axes and laid out by ``placements`` again
+    (where ``target`` replicates a model-axis dim, each rank keeps its
+    slice)."""
+
+    @staticmethod
+    def forward(ctx, local, mesh, placements, target):
+        ctx.mesh, ctx.placements, ctx.target = mesh, placements, target
+        out = DTensor.from_local(local, mesh, placements, run_check=False
+                                 ).redistribute(mesh, target).to_local()
+        # a new tensor even where the layout does not change
+        return out.clone() if out.data_ptr() == local.data_ptr() else out
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        src = [Partial() if a in DATA_AXES else t
+               for a, t in zip(mesh.mesh_dim_names, ctx.target)]
+        out = DTensor.from_local(g.contiguous(), mesh, src, run_check=False
+                                 ).redistribute(mesh, ctx.placements)
+        return out.to_local(), None, None, None
+
+
+def _relayout(local: torch.Tensor, mesh, placements, target) -> torch.Tensor:
+    """``_Redistribute`` on a plain local tensor (no collective on a mesh of
+    one rank)."""
+    if mesh.size() == 1:
+        return local
+    return _Redistribute.apply(local, mesh, tuple(placements), tuple(target))
+
+
+def whole(t: torch.Tensor, keep: tuple[str, ...] = ()) -> torch.Tensor:
+    """A parameter for compute: a DTensor gathered whole over every mesh dim
+    but those named in ``keep`` (the FSDP all-gather; its gradient is summed
+    over the data axes and lands in this rank's shard), a plain tensor as
+    it is."""
+    if not isinstance(t, DTensor):
+        return t
+    mesh = t.device_mesh
+    target = [p if a in keep else Replicate()
+              for a, p in zip(mesh.mesh_dim_names, t.placements)]
+    return _relayout(t.to_local(), mesh, t.placements, target)
+
+
+def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
+    """This data rank's rows (dim 0) of a batch -> the whole batch, in the
+    global row order.  Backward: each rank's gradient summed over the data
+    ranks, then its own rows kept."""
+    pl = [Shard(0) if a in DATA_AXES else Replicate()
+          for a in mesh.mesh_dim_names]
+    return _relayout(x, mesh, pl, [Replicate()] * len(pl))
+
+
+class _ModelSum(torch.autograd.Function):
+    """Megatron's pair over the "model" axis: ``forward`` sums over it and
+    the backward pass is the identity (``combine``: the compute after it is
+    replicated, so each rank's gradient is already the whole), or the
+    other way round (``fan_out``: what follows is split over the model
+    ranks, so each one's gradient is partial)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, in_forward):
+        ctx.mesh, ctx.in_forward = mesh, in_forward
+        return _sum_over(x, mesh, ("model",)) if in_forward else x.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.in_forward:
+            return g, None, None
+        return _sum_over(g, ctx.mesh, ("model",)), None, None
+
+
+def combine_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum of the model ranks' partial outputs; identity backward."""
+    return _ModelSum.apply(x, mesh, True)
+
+
+def fan_out_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Identity forward; the model ranks' partial gradients summed."""
+    return _ModelSum.apply(x, mesh, False)
+
+
+class _DataMean(torch.autograd.Function):
+    """Mean over the data ranks, forward and backward (its own adjoint
+    when every rank's loss holds the mean)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _sum_over(x, mesh, data_axes(mesh)) / data_size(mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh = ctx.mesh
+        return _sum_over(g, mesh, data_axes(mesh)) / data_size(mesh), None
+
+
+def mean_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over the data ranks (``x`` on one data rank)."""
+    if data_size(mesh) == 1:
+        return x
+    return _DataMean.apply(x, mesh)
 
 
 # ---------------------------------------------------------------------------

@@ -22,11 +22,17 @@ resumes in the other.
 
 A numpy array of ``bfloat16`` (``ml_dtypes``) is taken bit for bit; numpy
 has none of its own, so a bfloat16 model is not exported.
+
+On a mesh a DTensor is exported whole (a collective: every rank calls), and
+a tree is loaded into DTensor parameters and moments shard by shard, from
+whole arrays or from DTensors laid out as they are (``restore_checkpoint``
+with ``shardings=``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import ModelConfig
@@ -45,6 +51,8 @@ def _tensor(a, device) -> torch.Tensor:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         raise TypeError("numpy has no bfloat16: cast the model to float32 "
                         "to export it")
@@ -119,6 +127,9 @@ def _copy_into(dst: torch.Tensor, a, index, what) -> None:
     if tuple(src.shape) != tuple(dst.shape):
         raise ValueError(f"{what}: shape {tuple(src.shape)} against "
                          f"{tuple(dst.shape)}")
+    if isinstance(dst, DTensor) and not isinstance(src, DTensor):
+        src = distribute_tensor(src, dst.device_mesh, dst.placements,
+                                src_data_rank=None)
     with torch.no_grad():
         dst.copy_(src)
 
@@ -167,7 +178,10 @@ def from_reference_opt_state(model: LanguageModel, optimizer,
                              f"{sorted(st)} (quantize_v differs)")
         for k in st:
             _copy_into(st[k], mu[k], li, f"optimizer state {k}")
-    optimizer.state["step"] = _tensor(tree["step"], "cpu").to(torch.int32)
+    step = tree["step"]
+    if isinstance(step, DTensor):
+        step = step.full_tensor()
+    optimizer.state["step"] = _tensor(step, "cpu").to(torch.int32)
 
 
 def from_reference_caches(caches: list, device=None) -> list:

@@ -23,7 +23,13 @@ does: ``"full"`` keeps only its input, ``"dots"`` also keeps the outputs of
 its matmuls without batch dimensions (``aten.mm``; the reference's
 ``checkpoint_dots_with_no_batch_dims``), ``"none"`` keeps everything.  The
 three give equal gradients.  ``unroll`` and ``gather_bf16`` change nothing
-on one card.
+here.
+
+On a mesh (``launch.steps.place_model``) the parameters are DTensors laid
+out by ``param_axes`` through the sharding rules; each layer gathers its
+weights whole as it runs (``common.whole``, inside the remat region, so the
+backward pass gathers them again), and ``train_step_fn``'s batch is this
+data rank's rows.
 """
 from __future__ import annotations
 
@@ -32,6 +38,7 @@ import math
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -44,11 +51,15 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.common import (
     ModelConfig,
+    active_mesh,
     chunked_cross_entropy,
+    data_size,
     gelu_mlp,
+    mean_data,
     randn,
     rms_norm,
     swiglu,
+    whole,
 )
 
 
@@ -70,6 +81,14 @@ class Params(nn.Module):
 
     def __contains__(self, k) -> bool:
         return k in self._parameters or k in self._modules
+
+    def whole(self, keep: tuple[str, ...] = ()) -> dict:
+        """The tree as dicts of tensors, each DTensor gathered whole
+        (``common.whole``) but those named in ``keep``."""
+        out = {k: v if k in keep else whole(v)
+               for k, v in self._parameters.items()}
+        out.update((k, m.whole(keep)) for k, m in self._modules.items())
+        return out
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +140,13 @@ def _dense_ffn_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
 
 
+def _dense_ffn_axes(cfg: ModelConfig) -> dict:
+    if cfg.act == "swiglu":
+        return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                "w_down": ("mlp", "embed")}
+    return {"w_up": ("embed", "mlp"), "w_down": ("mlp", "embed")}
+
+
 def layer_params(cfg: ModelConfig, spec: tuple[str, str],
                  gen: torch.Generator) -> dict:
     mixer, ffn = spec
@@ -138,10 +164,28 @@ def layer_params(cfg: ModelConfig, spec: tuple[str, str],
     return p
 
 
+def layer_axes(cfg: ModelConfig, spec: tuple[str, str]) -> dict:
+    mixer, ffn = spec
+    ax: dict = {"norm1": ("act_embed",)}
+    if mixer == "attn":
+        ax["mixer"] = attn_mod.mla_axes() if cfg.mla else attn_mod.gqa_axes()
+    else:
+        ax["mixer"] = ssm_mod.ssm_axes()
+    if ffn != "none":
+        ax["norm2"] = ("act_embed",)
+        ax["ffn"] = (moe_mod.moe_axes(cfg) if ffn == "moe"
+                     else _dense_ffn_axes(cfg))
+    return ax
+
+
 def apply_layer(cfg: ModelConfig, spec: tuple[str, str], p, x: torch.Tensor,
                 positions: torch.Tensor, cache: dict | None, cache_len):
-    """Returns (x, new_cache_dict_or_None, aux_loss)."""
+    """Returns (x, new_cache_dict_or_None, aux_loss).  A layer on a mesh
+    gathers its weights whole first, but a MoE layer's expert weights,
+    which ``moe.moe_forward`` gathers as its dispatch needs."""
     mixer, ffn = spec
+    if isinstance(p, Params) and isinstance(p["norm1"], DTensor):
+        p = p.whole(moe_mod.EXPERT_WEIGHTS if ffn == "moe" else ())
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache = None
     if mixer == "attn":
@@ -193,6 +237,20 @@ def layer_cache_init(cfg: ModelConfig, spec: tuple[str, str], batch: int,
     return {"conv": sc.conv, "state": sc.state}
 
 
+def cache_axes(cfg: ModelConfig, spec: tuple[str, str], *,
+               seq_axis: str = "seq_kv") -> dict:
+    """Logical axes for one layer's cache (stacking axis added by caller)."""
+    mixer, _ = spec
+    if mixer == "attn":
+        if cfg.mla:
+            return {"k": ("batch", seq_axis, None),
+                    "v": ("batch", seq_axis, None)}
+        return {"k": ("batch", seq_axis, "kv_heads", None),
+                "v": ("batch", seq_axis, "kv_heads", None)}
+    return {"conv": ("batch", None, "ssm_inner"),
+            "state": ("batch", "ssm_inner", None, None)}
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> list:
     """Per segment, per slot, each cache array with a leading layer axis."""
@@ -230,6 +288,35 @@ _REMAT = {
 # ---------------------------------------------------------------------------
 # full model
 # ---------------------------------------------------------------------------
+def _stacked(tree):
+    """Each tuple leaf with the leading layer axis (None) of a stack."""
+    if isinstance(tree, dict):
+        return {k: _stacked(v) for k, v in tree.items()}
+    return (None,) + tuple(tree)
+
+
+def param_axes(cfg: ModelConfig) -> dict:
+    """The logical axes of the reference's parameter tree (segment leaves
+    stacked along a leading layer axis, None); nothing is built."""
+    axes: dict = {
+        "embed": ("vocab", "embed"),
+        "head": ("embed", "vocab"),
+        "final_norm": ("act_embed",),
+        "segments": [],
+    }
+    for pattern, _ in build_segments(cfg):
+        axes["segments"].append({
+            f"slot{slot}": _stacked(layer_axes(cfg, spec))
+            for slot, spec in enumerate(pattern)})
+    if cfg.mtp_depth:
+        axes["mtp"] = {
+            "proj": ("embed", None),
+            "norm_h": ("act_embed",), "norm_e": ("act_embed",),
+            "block": layer_axes(cfg, ("attn", "dense")),
+        }
+    return axes
+
+
 class LanguageModel(nn.Module):
     """The LM: its parameters (made from ``generator``, on ``device``) and
     the segment plan.  ``layers[si][f"slot{j}"][li]`` is layer ``li`` of
@@ -283,13 +370,19 @@ class LanguageModel(nn.Module):
         return [{"params": [p for p in self.parameters() if id(p) not in ids]},
                 {"params": stacked, "stacked": True}]
 
+    def param_axes(self) -> dict:
+        """The reference's ``param_axes`` tree (``param_axes(cfg)``); a
+        segment leaf's axes without their leading None are those of each
+        of its layers' tensors."""
+        return param_axes(self.cfg)
+
     # ---- forward ----
     def forward(self, tokens: torch.Tensor, *, frontend=None, caches=None,
                 cache_len=None, positions=None):
         """tokens (B, S) -> (h (B, S, d), aux, new caches or None)."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = self.embed[tokens].to(cfg.compute_dtype)
+        x = whole(self.embed)[tokens].to(cfg.compute_dtype)
         if frontend is not None:
             F_ = frontend.shape[1]
             x = torch.cat([frontend.to(x.dtype), x[:, F_:]], dim=1)
@@ -335,7 +428,7 @@ class LanguageModel(nn.Module):
                     name: {k: torch.stack([c[k] for c in cs])
                            for k in cs[0]}
                     for name, cs in outs.items()})
-        h = rms_norm(x, self.final_norm, cfg.norm_eps)
+        h = rms_norm(x, whole(self.final_norm), cfg.norm_eps)
         return h, aux_total, new_caches
 
     # ---- losses / steps ----
@@ -343,8 +436,8 @@ class LanguageModel(nn.Module):
         """(total, {"ce", "aux"}): the training loss, differentiable."""
         cfg = self.cfg
         h, aux, _ = self.forward(tokens, frontend=frontend)
-        ce = chunked_cross_entropy(h, self.head.to(cfg.compute_dtype), labels,
-                                   unroll=cfg.unroll)
+        ce = chunked_cross_entropy(h, whole(self.head).to(cfg.compute_dtype),
+                                   labels, unroll=cfg.unroll)
         total = ce + 0.01 * aux
         if cfg.mtp_depth:
             total = total + 0.3 * self._mtp_loss(h, tokens, labels)
@@ -357,16 +450,16 @@ class LanguageModel(nn.Module):
         cfg = self.cfg
         mtp = self.mtp
         B, S = tokens.shape
-        e_next = self.embed[tokens[:, 1:]].to(h.dtype)
-        hh = rms_norm(h[:, :-1], mtp["norm_h"], cfg.norm_eps)
-        ee = rms_norm(e_next, mtp["norm_e"], cfg.norm_eps)
-        z = torch.cat([hh, ee], dim=-1) @ mtp["proj"].to(h.dtype)
+        e_next = whole(self.embed)[tokens[:, 1:]].to(h.dtype)
+        hh = rms_norm(h[:, :-1], whole(mtp["norm_h"]), cfg.norm_eps)
+        ee = rms_norm(e_next, whole(mtp["norm_e"]), cfg.norm_eps)
+        z = torch.cat([hh, ee], dim=-1) @ whole(mtp["proj"]).to(h.dtype)
         positions = torch.arange(S - 1, dtype=torch.int32,
                                  device=h.device)[None].expand(B, S - 1)
         z, _, _ = apply_layer(cfg, ("attn", "dense"), mtp["block"], z,
                               positions, None, 0)
-        return chunked_cross_entropy(z, self.head.to(h.dtype), labels[:, 1:],
-                                     unroll=cfg.unroll)
+        return chunked_cross_entropy(z, whole(self.head).to(h.dtype),
+                                     labels[:, 1:], unroll=cfg.unroll)
 
     @torch.no_grad()
     def prefill(self, tokens, caches, frontend=None):
@@ -374,7 +467,7 @@ class LanguageModel(nn.Module):
         caches holding S positions)."""
         h, _, new_caches = self.forward(tokens, frontend=frontend,
                                         caches=caches, cache_len=0)
-        logits = h[:, -1] @ self.head.to(h.dtype)
+        logits = h[:, -1] @ whole(self.head).to(h.dtype)
         return logits, new_caches
 
     @torch.no_grad()
@@ -383,7 +476,7 @@ class LanguageModel(nn.Module):
         caches)."""
         h, _, new_caches = self.forward(token, caches=caches,
                                         cache_len=cache_len)
-        logits = h[:, -1] @ self.head.to(h.dtype)
+        logits = h[:, -1] @ whole(self.head).to(h.dtype)
         return logits, new_caches
 
 
@@ -401,18 +494,28 @@ def train_step_fn(cfg: ModelConfig, optimizer: torch.optim.Optimizer):
     """``step(model, batch) -> {"loss", "ce", "aux"}``: zero the gradients,
     differentiate ``model.loss`` (its parameters switched to
     ``requires_grad``), and step ``optimizer``, which updates the model's
-    parameters in place."""
+    parameters in place.
+
+    Under an active mesh the batch is this data rank's rows: each rank
+    differentiates its loss over the number of data ranks (the weights'
+    gathers sum the gradients over them), and the metrics returned are the
+    means over the data ranks, the whole batch's."""
     def step(model: LanguageModel, batch: dict) -> dict:
         if model.cfg != cfg:
             raise ValueError("the model was built for another config")
+        mesh = active_mesh()
+        n_dp = data_size(mesh)
         model.requires_grad_(True)
         optimizer.zero_grad(set_to_none=True)
         loss, metrics = model.loss(batch["tokens"], batch["labels"],
                                    frontend=batch.get("frontend"))
-        loss.backward()
+        (loss / n_dp if n_dp > 1 else loss).backward()
         optimizer.step()
-        return {"loss": loss.detach(), "ce": metrics["ce"].detach(),
-                "aux": metrics["aux"].detach()}
+        out = {"loss": loss.detach(), "ce": metrics["ce"].detach(),
+               "aux": metrics["aux"].detach()}
+        if n_dp > 1:
+            out = {k: mean_data(v, mesh) for k, v in out.items()}
+        return out
 
     return step
 

@@ -54,6 +54,18 @@ def ssm_params(cfg: ModelConfig, gen: torch.Generator) -> dict:
     }
 
 
+def ssm_axes() -> dict:
+    return {
+        "w_x": ("embed", "ssm_inner"), "w_z": ("embed", "ssm_inner"),
+        "w_B": ("embed", "ssm_state"), "w_C": ("embed", "ssm_state"),
+        "w_dt": ("embed", None),
+        "conv_w": (None, None), "conv_b": (None,),
+        "A_log": (None,), "D": (None,), "dt_bias": (None,),
+        "norm": ("ssm_inner",),
+        "w_out": ("ssm_inner", "embed"),
+    }
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor):
     """Depthwise causal conv, x: (B, S, C), w: (K, C)."""
     K = w.shape[0]

@@ -22,6 +22,12 @@ State: ``state["step"]`` (an int32 scalar, the reference's global step) and
 per parameter ``{"m", "v"}`` or, with ``quantize_v``, ``{"m", "vq", "vs"}``
 in float32 / int8, the reference's layout
 (``models.convert.{to,from}_reference_opt_state`` carry it across).
+
+On a mesh the parameters are DTensors and so are their gradients and
+moments, each laid out as its parameter (``state_axes``, the reference's
+rule, gives the same): the global norm sums every element once over the
+whole tensors, and a quantized second moment's scale is the whole row's
+maximum, replicated over the mesh dims that split the row.
 """
 from __future__ import annotations
 
@@ -30,6 +36,7 @@ from typing import Callable
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 
 def cosine_schedule(base_lr: float, warmup: int, total: int) -> Callable:
@@ -69,6 +76,11 @@ def _quantize_v(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     only shrink updates), with per-channel scales over the last axis."""
     r = torch.sqrt(v)
     scale = torch.amax(torch.abs(r), dim=-1, keepdim=True) / 127.0 + 1e-12
+    if isinstance(scale, DTensor):  # laid out as state_axes' "vs"
+        last = v.ndim - 1
+        scale = scale.redistribute(v.device_mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim == last else pl
+            for pl in v.placements])
     q = torch.clamp(torch.round(r / scale), 0, 127).to(torch.int8)
     return q, scale.float()
 
@@ -99,8 +111,7 @@ class AdamW(torch.optim.Optimizer):
         (zeros, as the reference's ``init``) on first use."""
         st = self.state[p]
         if not st:
-            st["m"] = torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+            st["m"] = torch.zeros_like(p, dtype=torch.float32)
             if self.quantize_v:
                 st["vq"], st["vs"] = _quantize_v(torch.zeros_like(st["m"]))
             else:
@@ -148,3 +159,20 @@ class AdamW(torch.optim.Optimizer):
                     st["v"] = v
         self.state["step"] = torch.tensor(step, dtype=torch.int32)
         return loss
+
+    def state_axes(self, param_axes) -> dict:
+        """The logical axes of the reference's optimizer state for a
+        parameter tree's axes: each moment inherits its parameter's; the
+        quantized second moment's per-channel scale keeps the leading axes
+        and has a broadcast last dim."""
+        def ax(a):
+            if isinstance(a, dict):
+                return {k: ax(v) for k, v in a.items()}
+            if isinstance(a, list):
+                return [ax(v) for v in a]
+            a = tuple(a)
+            if self.quantize_v:
+                vs = a[:-1] + (None,) if a else a
+                return {"m": a, "vq": a, "vs": vs}
+            return {"m": a, "v": a}
+        return {"step": (), "mu": ax(param_axes)}

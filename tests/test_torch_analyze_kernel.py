@@ -8,6 +8,7 @@ from collections import Counter
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro_torch import analyze as port
 from repro_torch.analyze import __main__ as cli
@@ -15,6 +16,18 @@ from repro_torch.analyze import kernel_check as kc
 from repro_torch.sparse import gen
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _counts(rep, passes=("plan-lint", "hazard")):

@@ -125,13 +125,13 @@ def test_async_save_writes_a_snapshot(tmp_path, monkeypatch):
     """The tensor is changed in place right after ``save`` returns, before
     the background write starts: the file holds the values at ``save``."""
     go = threading.Event()
-    write = ckpt_mod.save_checkpoint
+    write = ckpt_mod._write
 
     def held(*args, **kw):
         assert go.wait(30)
         return write(*args, **kw)
 
-    monkeypatch.setattr(ckpt_mod, "save_checkpoint", held)
+    monkeypatch.setattr(ckpt_mod, "_write", held)
     w = torch.arange(10.0)
     ck = AsyncCheckpointer(tmp_path)
     ck.save(1, {"w": w})

@@ -7,6 +7,7 @@ port's kernels) and to ``slogdet``, as the reference's own test
 (``tests/test_merge_refine.py::test_logdet_matches_slogdet``) holds it."""
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -19,6 +20,18 @@ from repro_torch.core import DeviceEngine  # noqa: E402
 #: names of ``repro.core.__all__`` the port does not export yet, each with
 #: the ROADMAP item that ports it (none left)
 NOT_PORTED: dict = {}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_core_exports_every_reference_name():

@@ -16,7 +16,10 @@ factor kernel, never a hang or garbage.  The static analysis's resource
 model (``analyze.kernel_check.KERNEL_FUNCS``) equals what
 ``cudaFuncGetAttributes`` reads from the built kernels, and smoke LM
 configs in fp32 on the card equal their CPU run, in a forward pass and in
-a training step, and a preempted training run resumes on the card."""
+a training step, and a preempted training run resumes on the card.  On a
+mesh of one rank (NCCL, world size 1), training through the DTensor path
+equals the single-card run bit for bit, ``moe_forward_local`` equals the
+global path, and a checkpoint restores with ``shardings=``."""
 import numpy as np
 import pytest
 import torch
@@ -1082,3 +1085,124 @@ def test_preempted_training_resumes_on_card(card, tmp_path):
     assert rest["steps_done"] == 8
     np.testing.assert_allclose(out["losses"] + rest["losses"],
                                whole["losses"], rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# the LM stack on a device mesh, on the card (world size 1 under NCCL)
+# ---------------------------------------------------------------------------
+@pytest.fixture
+def nccl_one(card):
+    """An NCCL process group of one rank on a hash store (no port)."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield card
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,impl", [("llama3.2-1b", None),
+                                       ("dbrx-132b", "local")])
+def test_mesh_training_at_one_rank_equals_single_card(card, arch, impl,
+                                                      monkeypatch):
+    """``train`` at (1, 1) through the DTensor path (a group initialized)
+    gives the single-card run's losses bit for bit, with every parameter
+    and moment a DTensor on the card."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.configs import registry
+    from repro_torch.launch.train import train
+
+    if impl:
+        mod = registry._module(arch)
+        monkeypatch.setattr(mod, "SMOKE", dataclasses.replace(
+            mod.SMOKE, moe_impl=impl))
+    kw = dict(steps=4, batch=4, seq=64, device=card)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = train(arch, **kw)["losses"]
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            out = train(arch, mesh_shape=(1, 1), **kw)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert out["losses"] == want
+    opt = out["optimizer"]
+    for p in out["params"].parameters():
+        assert isinstance(p, DTensor) and p.device.type == "cuda"
+        assert all(isinstance(m, DTensor) for m in opt.moments(p).values())
+
+
+def test_local_moe_on_card_matches_global(nccl_one):
+    """``moe_forward_local`` at (1, 1) on the card against the global path:
+    output, aux and every gradient to 1e-5 (fp32, TF32 off)."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import shardings_from_axes
+    from repro_torch.models.common import ModelConfig, set_active_mesh, whole
+    from repro_torch.models.moe import (EXPERT_WEIGHTS, _moe_forward_global,
+                                        moe_axes, moe_forward, moe_params)
+
+    cfg = ModelConfig(d_model=64, moe_experts=8, moe_top_k=2, moe_d_ff=96,
+                      moe_impl="local", moe_shared_experts=1,
+                      param_dtype=torch.float32, compute_dtype=torch.float32)
+    p = moe_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    x = torch.randn((4, 64, 64), generator=torch.Generator(
+        device="cuda").manual_seed(1), device="cuda")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_host_mesh((1, 1), device="cuda")
+    try:
+        pg = {k: v.clone().requires_grad_() for k, v in p.items()}
+        xg = x.clone().requires_grad_()
+        out_g, aux_g = _moe_forward_global(cfg, pg, xg)
+        ((out_g ** 2).sum() + aux_g).backward()
+        set_active_mesh(mesh)
+        plan = shardings_from_axes(mesh, p, moe_axes(cfg))
+        pd = {k: distribute_tensor(v.clone(), mesh, plan[k],
+                                   src_data_rank=None).requires_grad_()
+              for k, v in p.items()}
+        xl = x.clone().requires_grad_()
+        out, aux = moe_forward(cfg, {k: v if k in EXPERT_WEIGHTS
+                                     else whole(v) for k, v in pd.items()},
+                               xl)
+        ((out ** 2).sum() + aux).backward()
+    finally:
+        set_active_mesh(None)
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert _rel(out.detach(), out_g.detach()) <= 1e-5
+    assert abs(float(aux.detach()) - float(aux_g.detach())) <= 1e-6
+    assert _rel(xl.grad, xg.grad) <= 1e-5
+    for k in p:
+        assert _rel(pd[k].grad.to_local(), pg[k].grad) <= 1e-5, k
+
+
+def test_checkpoint_restores_with_shardings_on_card(nccl_one, tmp_path):
+    """A tree of DTensors saved whole restores with ``shardings=`` as
+    DTensors with the asked placements, bit for bit."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.launch.mesh import make_host_mesh
+
+    mesh = make_host_mesh((1, 1), device="cuda")
+    pl = {"w": (Shard(0), Shard(1)), "b": (Replicate(), Shard(0))}
+    full = {"w": torch.randn((8, 6), device="cuda"),
+            "b": torch.randn((6,), device="cuda")}
+    tree = {k: distribute_tensor(v, mesh, pl[k]) for k, v in full.items()}
+    save_checkpoint(tmp_path, 2, tree)
+    back = restore_checkpoint(tmp_path, 2, full, device="cuda",
+                              shardings={k: (mesh, v) for k, v in pl.items()})
+    for k, v in back.items():
+        assert tuple(v.placements) == pl[k] and v.device.type == "cuda"
+        assert torch.equal(v.full_tensor(), full[k])

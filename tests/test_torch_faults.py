@@ -10,6 +10,7 @@ The level at which an injected dispatch failure fires follows each
 package's own bucket family, so it is held to the port's schedule."""
 import numpy as np
 import pytest
+import torch
 import scipy.sparse as sp
 
 pytest.importorskip("jax")
@@ -42,6 +43,18 @@ from repro_torch.launch.serve import (  # noqa: E402
 from repro_torch.sparse import laplacian_2d  # noqa: E402
 
 _XLA = []
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _xla(plan=None):

@@ -27,6 +27,18 @@ from repro_torch.sparse import kkt_like, laplacian_2d, laplacian_3d  # noqa: E40
 TOL = 1e-12
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _close(P, Q):
     for p, q in zip(P, Q):
         np.testing.assert_allclose(p, q, rtol=TOL, atol=TOL)

@@ -41,6 +41,18 @@ from repro_torch.kernels import fused_factor_syrk  # noqa: E402
 RESID = 1e-10
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _resid(A, x, b):
     return float(np.linalg.norm(A @ x - b) / np.linalg.norm(b))
 

@@ -45,6 +45,18 @@ DELTA = 1e-8    # the check's relative margin
 SLACK = 4.0 * NB * float(np.finfo(np.float64).eps)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _blocked_factor(A11):
     """The panel launch's unclamped blocked factor of a 64 x 64 diagonal
     block (lower triangle; identity past the slab): 8 x 8 sub-blocks

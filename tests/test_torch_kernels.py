@@ -37,6 +37,18 @@ from repro_torch.kernels import (  # noqa: E402
 )
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lanes(extents, Lp, Wp, garbage, seed=0):
     """Raw staged lanes: SPD diagonal block (lower triangle) and tail rows;
     pad cells zero, or random garbage when ``garbage``."""

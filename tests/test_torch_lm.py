@@ -36,6 +36,18 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 B, S = 2, 64
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _fp32(arch):
     r = dataclasses.replace(ref_smoke(arch), param_dtype=jnp.float32,
                             compute_dtype=jnp.float32)

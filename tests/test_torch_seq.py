@@ -14,6 +14,7 @@ bucket.  Host-only factorizations run the same numpy code in both packages
 and must agree bit for bit."""
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -34,6 +35,18 @@ from repro_torch.core import (  # noqa: E402
 from repro_torch.sparse import laplacian_2d  # noqa: E402
 
 COUNTS = ("transfers_in", "transfers_out", "device_calls")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _port_sym(s):

@@ -12,6 +12,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")
 
@@ -25,6 +26,18 @@ from repro_torch.launch.serve import (  # noqa: E402
     run_stream,
     synthetic_stream,
 )
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _cpu_server(**kw):

@@ -37,6 +37,18 @@ GENERATORS = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _port_sym(s):
     """Hand the reference's analysis to the port."""
     return symbolic_from_arrays(s.n, s.perm, s.parent, s.super_ptr, s.rows,

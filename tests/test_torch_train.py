@@ -364,6 +364,15 @@ def test_loss_decreases():
     assert last < first - 0.3, (first, last)
 
 
-def test_multi_device_mesh_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 2"):
+def test_mesh_without_a_process_group_raises_as_reference():
+    """A (2, 1) mesh needs two devices: the reference's host mesh asserts
+    it has them (one CPU device here), the port that the process group has
+    two ranks (none is initialized); both name the need."""
+    from repro.launch.mesh import make_host_mesh as ref_host_mesh
+
+    with pytest.raises(AssertionError,
+                       match=r"mesh \(2, 1\) needs 2 devices, have 1"):
+        ref_host_mesh((2, 1))
+    with pytest.raises(ValueError,
+                       match=r"mesh \(2, 1\) needs 2 devices, have 1"):
         train(mesh_shape=(2, 1), device="cpu")

@@ -26,6 +26,18 @@ from repro_torch.kernels.trsm import (
 WIDTHS = [1, 63, 64, 65, 128, 129, 192, 256, 257, 669, 1024, 2048]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread for these small ops, as in
+    ``test_torch_train.py``: under the 6-worker test run each worker's
+    thread pool spun at every op's barrier, and this file's tests took
+    1.2-7x as long as with one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _lower(W, seed):
     rng = np.random.default_rng(seed)
     L = np.tril(rng.standard_normal((W, W)) / np.sqrt(W))
