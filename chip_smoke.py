@@ -96,7 +96,19 @@ card:
    output and gradients within 1e-5 of each one's largest, aux within
    1e-6, each path's seconds and peak memory; (i3) (i1)'s state saved and
    restored with ``shardings=``, bit for bit; the group destroyed;
-13. prints a ``kernels`` JSON line, the card's name and power limit, and the
+13. (j) the dry run (``repro_torch.launch.dryrun``; no kernel of its own):
+   (j1) ``python -m repro_torch.launch.dryrun --force`` in child processes
+   for llama3.2-1b's train, prefill and decode cells on the single pod's
+   16 x 16 mesh and deepseek-v3-671b's train cell on the multi pod's
+   2 x 16 x 16 (fake process groups of 256 and 512 ranks), every record
+   ok, its bound, terms, MFU at the roofline and memory printed; (j2)
+   llama3.2-1b's train (fp32, 8 x 256), prefill and decode (bf16, 4 x 512)
+   cells at full width, run for real at (1, 1) under NCCL before any child
+   starts, and dry run at (1, 1) in a child: the real step's flops equal
+   to the dry run's, its peak memory within 3 % plus 64 MiB of the dry
+   run's, its MFU beside the roofline's, ten train steps whose losses
+   fall;
+14. prints a ``kernels`` JSON line, the card's name and power limit, and the
    result line ``{"ok": true, "device": {...}}`` last.
 
 numpy's BLAS runs one thread here unless ``OPENBLAS_NUM_THREADS`` is set.
@@ -2370,6 +2382,287 @@ def mesh_phase(h1_losses: list) -> dict:
     return rec
 
 
+#: phase (j), the dry run (``launch.dryrun``; no kernel of its own).  (j1)
+#: production cells through the CLI, each in a child process (its fake
+#: process group must not meet (j2)'s NCCL group): (arch, shape, mesh)
+DRY_CELLS = (("llama3.2-1b", "train_4k", "single"),
+             ("llama3.2-1b", "prefill_32k", "single"),
+             ("llama3.2-1b", "decode_32k", "single"),
+             ("deepseek-v3-671b", "train_4k", "multi"))
+#: (j2) llama3.2-1b's cells at full width and reduced shapes, as the
+#: reference's smoke test reduces them: (seq, batch) of (h1)'s training
+#: (fp32, as ``launch.train`` forces) and of (g)'s serving (bf16); each
+#: dry run at (1, 1) in a child process and run for real at (1, 1) under
+#: NCCL, ``DRY_STEPS`` train steps
+DRY_ARCH = "llama3.2-1b"
+DRY_SHAPES = {"train_4k": (256, 8), "prefill_32k": (512, 4),
+              "decode_32k": (512, 4)}
+DRY_STEPS = 10
+#: (j2) the real step's peak device memory against the dry run's
+#: ``total_nonaliased_bytes``: within DRY_MEM_REL of it plus DRY_MEM_SLACK
+#: bytes (the allocator's rounding, kernels' own workspaces)
+DRY_MEM_REL, DRY_MEM_SLACK = 0.03, 64 * 2 ** 20
+#: the smoke config instead of the full one (a CPU rehearsal of (j2))
+DRY_SMOKE = False
+
+
+def _dry_shapes() -> dict:
+    """(j2)'s reduced ``ShapeSpec``s, swapped into the registry and the
+    ``build_cell`` (the reference's smoke test swaps its shapes so)."""
+    import repro_torch.configs as pc
+    import repro_torch.configs.registry as preg
+    from repro_torch.launch import steps
+
+    shapes = {k: preg.ShapeSpec(k, seq, batch, preg.SHAPES[k].kind)
+              for k, (seq, batch) in DRY_SHAPES.items()}
+    for m in (preg, pc, steps):
+        m.SHAPES = shapes
+    return shapes
+
+
+def _dry_overrides(shape: str) -> dict | None:
+    import torch
+
+    if shape == "train_4k":
+        return {"param_dtype": torch.float32, "compute_dtype": torch.float32}
+    return None
+
+
+def _dry_child(smoke: bool) -> None:
+    """(j2)'s dry runs: each cell traced at (1, 1) over a fake process
+    group of one rank, its roofline printed as one JSON line."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.roofline import model_flops_for, roofline
+
+    shapes = _dry_shapes()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh((1, 1), device=steps.trace_device())
+        out = {}
+        for shape, spec in shapes.items():
+            cell = steps.build_cell(DRY_ARCH, shape, mesh, smoke=smoke,
+                                    unroll=False,
+                                    overrides=_dry_overrides(shape))
+            trace = steps.lower_cell(cell, mesh)
+            out[shape] = {
+                "trace_device": trace.device, "trace_s": trace.seconds,
+                "n_ops": len(trace.ops),
+                "roofline": roofline(trace, 1, cfg=cell.cfg, spec=spec,
+                                     kind=cell.kind,
+                                     model_flops=model_flops_for(
+                                         cell.cfg, spec, cell.kind))}
+    finally:
+        dist.destroy_process_group()
+    print("DRY", json.dumps(out), flush=True)
+
+
+def _dry_real(mesh, shape: str, spec) -> dict:
+    """(j2) One cell's real step on the card at (1, 1): its matrix flops
+    (``FlopCounterMode`` over the first step), its peak device memory and
+    its median step seconds; train: ``DRY_STEPS`` steps on the data
+    stream, serving: logits of the expected shape, finite."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.data import make_train_iterator
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import HW
+    from repro_torch.launch.roofline import model_flops_for
+
+    cell = steps.build_cell(DRY_ARCH, shape, mesh, smoke=DRY_SMOKE,
+                            unroll=False, overrides=_dry_overrides(shape))
+    cfg = cell.cfg
+    it = make_train_iterator(cfg.vocab, spec.seq, spec.batch, seed=SEED)
+
+    def next_batch():
+        host = next(it)[1]
+        if cell.kind == "train":
+            return {k: torch.from_numpy(v).to(DEV) for k, v in host.items()}
+        tokens = host["tokens"] if cell.kind == "prefill" \
+            else host["tokens"][:, :1]
+        return {"tokens": torch.from_numpy(tokens).to(DEV)}
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = cell.make_args(DEV, seed=SEED, batch=next_batch())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as fc:
+        out = cell.step(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses, step_s = [], []
+    if cell.kind == "train":
+        losses.append(float(out["loss"]))
+        for _ in range(DRY_STEPS - 1):
+            batch = steps.layout(mesh, next_batch(), cell.in_shardings[0])
+            t0 = time.perf_counter()
+            out = cell.step(args[0], args[1], batch)
+            losses.append(float(out["loss"]))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        if not (all(np.isfinite(losses))
+                and np.mean(losses[-3:]) < losses[0]):
+            raise AssertionError(f"(j2) train losses {losses}")
+    else:
+        for _ in range(4):
+            t0 = time.perf_counter()
+            out = cell.step(*args)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        logits = out[0]
+        finite = bool(torch.isfinite(logits).all())
+        if tuple(logits.shape) != (spec.batch, cfg.vocab) or not finite:
+            raise AssertionError(f"(j2) {shape}: logits "
+                                 f"{tuple(logits.shape)}, finite {finite}")
+    step_s = step_s[1:]  # the first warms up (train: steps 3 on)
+    med = sorted(step_s)[len(step_s) // 2]
+    del args, out
+    torch.cuda.empty_cache()
+    return {"shape": shape, "kind": cell.kind, "seq": spec.seq,
+            "batch": spec.batch, "dtype": str(cfg.param_dtype),
+            "flops": fc.get_total_flops(), "peak_bytes": peak,
+            "median_step_s": med, "step_s": step_s, "losses": losses,
+            "mfu": model_flops_for(cfg, spec, cell.kind)
+            / (med * HW["peak_flops"])}
+
+
+def _dry_check(rec: dict, dry: dict) -> dict:
+    """(j2) A real step's record against its cell's dry run: the flops
+    equal, the peak within ``DRY_MEM_REL`` plus ``DRY_MEM_SLACK``."""
+    rf = dry["roofline"]
+    mem = rf["memory_analysis"]["total_nonaliased_bytes"]
+    rec.update(dry_flops=rf["flops_per_device"], dry_total_bytes=mem,
+               mem_rel=(rec["peak_bytes"] - mem) / mem,
+               mfu_at_roofline=rf["mfu_at_roofline"], bound=rf["bound"],
+               roofline_step_s=rf["roofline_step_s"],
+               dry_trace_device=dry["trace_device"],
+               dry_trace_s=dry["trace_s"])
+    if rec["flops"] != rf["flops_per_device"]:
+        raise AssertionError(f"(j2) {rec['shape']}: the real step's flops "
+                             f"{rec['flops']} against the dry run's "
+                             f"{rf['flops_per_device']}")
+    if abs(rec["peak_bytes"] - mem) > DRY_MEM_REL * mem + DRY_MEM_SLACK:
+        raise AssertionError(f"(j2) {rec['shape']}: peak "
+                             f"{rec['peak_bytes']} bytes against the dry "
+                             f"run's {mem}")
+    return rec
+
+
+def _start(cmd: list, log: Path):
+    """A child process of the smoke, its output to ``log``."""
+    with log.open("w") as f:
+        return subprocess.Popen(cmd, cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ,
+                                         PYTHONPATH=str(ROOT / "src")))
+
+
+def dryrun_phase() -> dict:
+    """(j) The dry run.  (j2) first, alone on the host: llama3.2-1b's
+    train, prefill and decode cells run for real on the card at (1, 1)
+    under an NCCL group of world size 1 at ``DRY_SHAPES`` (``_dry_real``),
+    so that their step seconds are not taken beside the children's
+    traces.  Then, each in a child process: (j1) ``python -m
+    repro_torch.launch.dryrun --force`` for each of ``DRY_CELLS`` (a fake
+    process group of 256 or 512 ranks each), every record ok; and (j2)'s
+    dry runs of the same cells at (1, 1), each real step then held against
+    its dry run (``_dry_check``).  Every child is waited for, or killed on
+    a failure."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import set_active_mesh, set_mesh_rules
+
+    logs = ROOT / "build" / "dryrun_logs"
+    logs.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    saved = steps.SHAPES
+    shapes = _dry_shapes()
+    real = {}
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        from repro_torch.launch.mesh import make_host_mesh
+
+        mesh = make_host_mesh((1, 1), device=DEV)
+        for shape, spec in shapes.items():
+            real[shape] = _dry_real(mesh, shape, spec)
+    finally:
+        dist.destroy_process_group()
+        set_active_mesh(None)
+        set_mesh_rules({})
+        import repro_torch.configs as pc
+        import repro_torch.configs.registry as preg
+        for m in (preg, pc, steps):
+            m.SHAPES = saved
+    real_s = time.perf_counter() - t0
+
+    procs = {}
+    try:
+        for arch, shape, mesh in DRY_CELLS:
+            procs[(arch, shape, mesh)] = _start(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh, "--force"],
+                logs / f"{arch}__{shape}__{mesh}.log")
+        code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+                f"{str(ROOT / 'src')!r}]; import chip_smoke; "
+                f"chip_smoke._dry_child({DRY_SMOKE!r})")
+        procs["j2"] = _start([sys.executable, "-c", code], logs / "j2.log")
+        if procs["j2"].wait(timeout=600) != 0:
+            raise AssertionError("(j2) dry run: " + (
+                logs / "j2.log").read_text()[-3000:])
+        lines = [ln for ln in (logs / "j2.log").read_text().splitlines()
+                 if ln.startswith("DRY ")]
+        dry = json.loads(lines[-1][4:])
+        for shape, rec in real.items():
+            _dry_check(rec, dry[shape])
+        records = {}
+        for key, p in procs.items():
+            if key == "j2":
+                continue
+            rc = p.wait(timeout=900)
+            arch, shape, mesh = key
+            path = dryrun.RESULTS / f"{arch}__{shape}__{mesh}.json"
+            rec = json.loads(path.read_text()) if path.exists() else {}
+            if rc != 0 or not rec.get("ok"):
+                raise AssertionError(
+                    f"(j1) {key}: rc {rc}, ok {rec.get('ok')}: "
+                    + rec.get("error", (logs / f"{arch}__{shape}__{mesh}.log"
+                                        ).read_text()[-3000:]))
+            rf = rec["roofline"]
+            records[f"{arch}/{shape}/{mesh}"] = {
+                "devices": rec["devices"], "trace_device": rec["trace_device"],
+                "n_ops": rec["n_ops"], "bound": rf["bound"],
+                "t_compute_s": rf["t_compute_s"],
+                "t_memory_s": rf["t_memory_s"],
+                "t_collective_s": rf["t_collective_s"],
+                "mfu_at_roofline": rf["mfu_at_roofline"],
+                "flops_per_device": rf["flops_per_device"],
+                "collective_wire_bytes_per_device":
+                    rf["collective_wire_bytes_per_device"],
+                "collective_wire_bytes_per_device_internode":
+                    rf["collective_wire_bytes_per_device_internode"],
+                "collective_counts": rf["collective_counts"],
+                "memory_analysis": rf["memory_analysis"],
+                "lower_s": rec["lower_s"], "compile_s": rec["compile_s"],
+                "wall_s": rec["wall_s"]}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return {"j1": records, "j2": real, "j2_real_s": real_s,
+            "seconds": time.perf_counter() - t0}
+
+
 def entry_name(line: str) -> str:
     """The last name of the mangled entry function in a ptxas or SASS line
     (``_ZN<len><namespace><len><name>E...`` gives ``name``), with its
@@ -2626,6 +2919,36 @@ def main() -> None:
           f"bit for bit: to host {r['to_host_s']:.1f} s, save "
           f"{r['save_s']:.1f} s, restore {r['restore_s']:.1f} s; launches "
           f"{counts} ({secs:.1f} s)", flush=True)
+    # the dry run: no kernel of its own either
+    rec, secs, counts = run_path(fns, totals, dryrun_phase)
+    print("dryrun", json.dumps(rec), flush=True)
+    for key, r in rec["j1"].items():
+        m = r["memory_analysis"]
+        print(f"(j1) {key} ({r['devices']} ranks, fake {r['trace_device']} "
+              f"tensors, {r['n_ops']} ops): bound {r['bound']}, terms "
+              f"compute {r['t_compute_s']:.4g} s, memory "
+              f"{r['t_memory_s']:.4g} s, collective {r['t_collective_s']:.4g}"
+              f" s ({r['collective_wire_bytes_per_device_internode'] / 1e9:.4g}"
+              f" of {r['collective_wire_bytes_per_device'] / 1e9:.4g} GB "
+              f"across nodes); mfu_at_roofline {r['mfu_at_roofline']:.4g}; "
+              f"{m['total_nonaliased_bytes'] / 2 ** 30:.2f} GiB a device, "
+              f"fits_80g {m['fits_80g']}; trace {r['lower_s']:.1f} s, "
+              f"analysis {r['compile_s']:.2f} s, wall {r['wall_s']:.1f} s",
+              flush=True)
+    for r in rec["j2"].values():
+        loss = (f"; losses {', '.join(f'{x:.4f}' for x in r['losses'])}"
+                if r["losses"] else "")
+        print(f"(j2) {DRY_ARCH} {r['shape']} {r['batch']} x {r['seq']} "
+              f"{r['dtype']} at (1, 1): flops {r['flops']} = dry run's "
+              f"{r['dry_flops']:.0f}; peak {r['peak_bytes'] / 2 ** 30:.3f} "
+              f"GiB against the dry run's {r['dry_total_bytes'] / 2 ** 30:.3f}"
+              f" ({100 * r['mem_rel']:+.2f} %); median step "
+              f"{r['median_step_s']:.4f} s, MFU {r['mfu']:.4g} against "
+              f"mfu_at_roofline {r['mfu_at_roofline']:.4g} (bound "
+              f"{r['bound']}){loss} ({smi})", flush=True)
+    print(f"(j) dry run: {rec['seconds']:.1f} s, the real steps "
+          f"(alone, first) {rec['j2_real_s']:.1f} s of it; launches {counts} "
+          f"({secs:.1f} s)", flush=True)
     print(f"launches over all paths: {totals}", flush=True)
     if min(totals.values()) <= 0:
         raise AssertionError(f"a kernel was never launched: {totals}")

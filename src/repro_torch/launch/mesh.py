@@ -53,3 +53,11 @@ HW = {
                             # over its 18 links)
     "hbm_per_chip": 80e9,   # bytes of HBM3
 }
+
+# NVLink joins only the 8 GPUs of one node (DGX / HGX H100); a node reaches
+# the others over one 400 Gb/s ConnectX-7 NIC per GPU (DGX H100 datasheet).
+# Ranks lie ``gpus_per_node`` to a node in rank order (torchrun's layout).
+NET = {
+    "gpus_per_node": 8,
+    "net_bw": 50e9,         # bytes/s each way a GPU, off the node
+}

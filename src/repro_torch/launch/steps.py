@@ -1,14 +1,80 @@
-"""Placements from logical axes (port of ``shardings_from_axes`` of
-``src/repro/launch/steps.py``), and the model's parameters put on a mesh
-with them.
+"""Cells (port of ``src/repro/launch/steps.py``): (architecture x
+input shape x mesh) -> a step function, the ``(shape, dtype)`` specs of its
+inputs, their placements on the mesh, and what it updates in place; and
+the parameters put on a mesh by their logical axes (``place_model``).
+
+The same functions serve the dry run and the real training and serving
+steps, so what is dry run is what runs.  In the reference the dry run lowers and compiles the
+step under ``jax.jit``.  The port has no compiler; its counterpart of
+"lower and compile" is one run of the same step on fake tensors
+(``lower_cell``):
+
+  * under ``FakeTensorMode``: nothing is allocated and no kernel runs;
+  * over a ``torch.distributed`` group of backend ``"fake"`` of the mesh's
+    size (256 or 512 ranks for the production meshes; the caller makes it,
+    as ``launch.dryrun`` does), the parameters, the optimizer state and
+    the inputs laid out on it as DTensors, this rank holding its shards;
+  * inside ``hlo_analysis.TraceRecorder``, whose record (every aten op with
+    its shapes, every collective with its group size, where each came
+    from, the live bytes of every storage) stands in for the optimized
+    HLO.
+
+The fake tensors lie on the card (``cuda``) where PyTorch has one, else on
+the CPU (``trace_device``): a CPU-only build cannot run autograd on fake
+CUDA tensors (its engine needs the CUDA device guard and aborts without
+it).  The model has no device-dependent path, so the record is the same
+aten program on either.  The same ``Cell`` run on real tensors
+(``cell.make_args`` outside a fake mode, then ``cell.step``) is the real
+step: one construction, two executions.
+
+A step computes as the port's mesh path does (``models.common``): the
+weights gathered whole per layer, a batch split over the data axes, and
+compute over ``"model"`` replicated.  A prefill or decode step gathers its
+cache over the non-data mesh dims it is split over (the decode cells' rule
+puts the cache's positions on ``"model"``), runs on this data rank's rows,
+and lays the new cache out as the old one.
 """
 from __future__ import annotations
 
-from torch import nn
-from torch.distributed.tensor import Shard, distribute_tensor
+import contextlib
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Callable
 
-from repro_torch.models.common import _resolve, spec_placements
+import torch
+from torch import nn
+from torch.distributed.tensor import DTensor, Replicate, Shard, distribute_tensor
+
+from repro_torch.configs import SHAPES, get_config, get_smoke_config, input_specs
+from repro_torch.device import resolve_device
+from repro_torch.launch.hlo_analysis import Trace, TraceRecorder
+from repro_torch.models.common import (
+    DATA_AXES,
+    Mesh_Rules,
+    ModelConfig,
+    _resolve,
+    set_active_mesh,
+    set_mesh_rules,
+    spec_placements,
+    whole,
+)
 from repro_torch.models.convert import _entries
+from repro_torch.models.model import (
+    build_segments,
+    cache_axes,
+    init_cache,
+    init_params,
+    train_step_fn,
+)
+from repro_torch.optim import AdamW
+
+# per-shape sharding-rule overrides (the reference's)
+SHAPE_RULES = {
+    "train_4k": {},
+    "prefill_32k": {},
+    "decode_32k": {"seq_kv": "model"},
+    "long_500k": {"batch": None, "seq_kv": ("pod", "data", "model")},
+}
 
 
 def _spec(mesh, shape, axes) -> tuple:
@@ -82,3 +148,345 @@ def place_model(model, mesh) -> None:
                                src_data_rank=None)
         mod.register_parameter(leaf, nn.Parameter(
             dt, requires_grad=p.requires_grad))
+
+
+# ---------------------------------------------------------------------------
+# axis trees of a cell's inputs
+# ---------------------------------------------------------------------------
+def batch_axes(cfg: ModelConfig, shape: str) -> dict:
+    spec = SHAPES[shape]
+    if spec.kind == "train":
+        ax = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        if cfg.frontend_tokens:
+            ax["frontend"] = ("batch", None, "act_embed")
+        return ax
+    if spec.kind == "prefill":
+        ax = {"tokens": ("batch", "seq")}
+        if cfg.frontend_tokens:
+            ax["frontend"] = ("batch", None, "act_embed")
+        return ax
+    return {"tokens": ("batch", None), "cache_len": ()}
+
+
+def cache_axes_tree(cfg: ModelConfig) -> list:
+    """Axes tree mirroring init_cache structure (leading stack axis -> None)."""
+    out = []
+    for pattern, _r in build_segments(cfg):
+        seg = {}
+        for si, spec in enumerate(pattern):
+            one = cache_axes(cfg, spec)
+            seg[f"slot{si}"] = {k: (None,) + tuple(ax) for k, ax in one.items()}
+        out.append(seg)
+    return out
+
+
+def pick_optimizer(cfg: ModelConfig, params) -> AdamW:
+    """AdamW over ``params`` (``model.param_groups()``)."""
+    # int8 second moment for >15B-param models: the difference between
+    # fitting and not fitting optimizer state in HBM at this mesh size.
+    big = cfg.n_params() > 15e9
+    return AdamW(params, lr=3e-4, quantize_v=big)
+
+
+# ---------------------------------------------------------------------------
+# cells
+# ---------------------------------------------------------------------------
+@dataclass
+class Cell:
+    """A step and what it runs on.  ``step(*make_args(device))``: the
+    train step ``(model, optimizer, batch) -> metrics``, the prefill step
+    ``(model, batch, caches) -> (logits, caches)`` or the decode step
+    ``(model, token, caches, cache_len) -> (logits, caches)``.  ``args``
+    holds the ``(shape, dtype)`` specs of the step's inputs after the model
+    (and optimizer), as global shapes in the reference's trees, and
+    ``in_shardings`` their placements; the model's parameters and the
+    optimizer's state are laid out by ``place_model`` (``param_axes``
+    through the rules, as ``shardings_from_axes`` maps them).  The train
+    step updates the parameters in place and the optimizer's state (the
+    reference donates both); a prefill or decode step returns a new cache
+    (the reference donates the old one)."""
+    arch: str
+    shape: str
+    cfg: ModelConfig
+    step: Any
+    args: tuple
+    in_shardings: tuple
+    donate_argnums: tuple
+    kind: str
+    rules: dict | None = None
+    make_args: Callable | None = None
+
+
+def trace_device() -> str:
+    """The device of a dry run's fake tensors: the card where PyTorch has
+    one, else the CPU (see the module's docstring)."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
+def _map(fn, *trees):
+    """``fn`` over the leaves of parallel dict/list trees."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _map(fn, *(x[k] for x in trees)) for k in t}
+    if isinstance(t, list):
+        return [_map(fn, *x) for x in zip(*trees)]
+    return fn(*trees)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def layout(mesh, tensors, placements):
+    """Global tensors -> DTensors with this rank's pieces (a tree), or the
+    tensors as they are without a mesh."""
+    if mesh is None:
+        return tensors
+    return _map(lambda t, pl: distribute_tensor(t, mesh, pl,
+                                                src_data_rank=None),
+                tensors, placements)
+
+
+def _kept(t, bdim: int) -> tuple:
+    """The data axes that split ``t``'s batch dim ``bdim``."""
+    return tuple(a for a, p in zip(t.device_mesh.mesh_dim_names, t.placements)
+                 if a in DATA_AXES and p == Shard(bdim))
+
+
+def _local(t, bdim: int = 0):
+    """A DTensor input as this rank computes on it: gathered over every
+    mesh dim but the data axes that split its batch dim ``bdim`` (this
+    data rank's rows kept)."""
+    if not isinstance(t, DTensor):
+        return t
+    if t.device_mesh.size() == 1:
+        return t.to_local()
+    return whole(t, keep=_kept(t, bdim))
+
+
+def _relay(x, like, bdim: int = 1):
+    """A local result laid out as the DTensor ``like`` (this rank keeps
+    its slice of what it gathered; no collective)."""
+    if not isinstance(like, DTensor):
+        return x
+    mesh, keep = like.device_mesh, _kept(like, bdim)
+    gathered = [p if a in keep else Replicate()
+                for a, p in zip(mesh.mesh_dim_names, like.placements)]
+    return DTensor.from_local(x, mesh, gathered, run_check=False
+                              ).redistribute(mesh, like.placements)
+
+
+@contextlib.contextmanager
+def _batch_split(mesh, split: bool):
+    """The mesh active while a step runs where the batch is split over the
+    data axes; none where the rules keep the whole batch on every rank
+    (``long_500k``), so the model does not take its rows for a data
+    rank's (its parameters stay DTensors, gathered as they are used)."""
+    if split:
+        yield
+        return
+    set_active_mesh(None)
+    try:
+        yield
+    finally:
+        set_active_mesh(mesh)
+
+
+def _inputs(cfg: ModelConfig, ins: dict, gen, dev) -> dict:
+    """Random global tensors for ``input_specs``' specs: tokens and labels
+    in the vocab, a frontend's embeddings normal."""
+    out = {}
+    for k, (shape, dtype) in ins.items():
+        if dtype.is_floating_point:
+            out[k] = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        else:
+            out[k] = torch.randint(0, cfg.vocab, shape, generator=gen,
+                                   device=dev, dtype=dtype)
+    return out
+
+
+def build_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
+               rules: dict | None = None, unroll: bool = True,
+               overrides: dict | None = None) -> Cell:
+    """The cell of ``arch`` x ``shape`` on ``mesh`` (a ``DeviceMesh`` over
+    the caller's process group, or None for one device).  The rules are
+    set and the mesh made active, as the reference's ``build_cell`` does;
+    ``unroll`` and ``overrides`` replace fields of the config.  The train
+    step's gradients are DTensors laid out as their parameters (each
+    weight's gather sums its gradient over the data axes into this rank's
+    shard): the counterpart of the reference's constraint on them."""
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    if unroll:
+        cfg = dataclasses.replace(cfg, unroll=True)
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    spec = SHAPES[shape]
+    if rules is None:
+        rules = dict(SHAPE_RULES.get(shape, {}))
+    set_mesh_rules(rules)
+    set_active_mesh(mesh)
+    batch_rule = Mesh_Rules().get("batch")
+    split = mesh is not None and any(
+        a in DATA_AXES for a in (batch_rule if isinstance(batch_rule, tuple)
+                                 else (batch_rule,)))
+
+    def place(specs, axes):
+        if mesh is None:
+            return _map(lambda s, a: None, specs, axes)
+        return shardings_from_axes(mesh, _map(_Spec, specs), axes)
+
+    ins = input_specs(cfg, shape)
+    batch_sh = place(ins, batch_axes(cfg, shape))
+    cache_specs = None
+    if spec.kind != "train":
+        cache_specs = _cache_specs(cfg, spec.batch, spec.seq)
+        cache_sh = place(cache_specs, cache_axes_tree(cfg))
+
+    def model_on(dev, seed):
+        model = init_params(cfg, seed, device=dev)
+        if mesh is not None:
+            place_model(model, mesh)
+        return model
+
+    if spec.kind == "train":
+        def step(model, optimizer, batch):
+            local = {k: _local(v) for k, v in batch.items()}
+            with _batch_split(mesh, split):
+                return train_step_fn(cfg, optimizer)(model, local)
+
+        def make_args(device=None, *, seed: int = 0, batch=None):
+            """(model, optimizer with its state made, batch): ``batch``
+            global tensors (default random from ``seed``)."""
+            dev = resolve_device(device)
+            model = model_on(dev, seed)
+            opt = pick_optimizer(cfg, model.param_groups())
+            for p in model.parameters():
+                opt.moments(p)
+            if batch is None:
+                gen = torch.Generator(device=dev).manual_seed(seed + 1)
+                batch = _inputs(cfg, ins, gen, dev)
+            return model, opt, layout(mesh, batch, batch_sh)
+
+        return Cell(arch, shape, cfg, step, (ins,), (batch_sh,),
+                    donate_argnums=(0, 1), kind="train", rules=rules,
+                    make_args=make_args)
+
+    def run(model, fn, caches):
+        local = _map(lambda c: _local(c, 1), caches)  # (layers, batch, ...)
+        with _batch_split(mesh, split):
+            logits, new = fn(local)
+        return logits, _map(_relay, new, caches)
+
+    if spec.kind == "prefill":
+        def step(model, batch, caches):
+            local = {k: _local(v) for k, v in batch.items()}
+            return run(model, lambda c: model.prefill(
+                local["tokens"], c, frontend=local.get("frontend")), caches)
+
+        def make_args(device=None, *, seed: int = 0, batch=None):
+            """(model, batch, empty caches of ``spec.seq`` positions)."""
+            dev = resolve_device(device)
+            model = model_on(dev, seed)
+            if batch is None:
+                gen = torch.Generator(device=dev).manual_seed(seed + 1)
+                batch = _inputs(cfg, ins, gen, dev)
+            caches = init_cache(cfg, spec.batch, spec.seq, cfg.compute_dtype,
+                                dev)
+            return (model, layout(mesh, batch, batch_sh),
+                    layout(mesh, caches, cache_sh))
+
+        return Cell(arch, shape, cfg, step, (ins, cache_specs),
+                    (batch_sh, cache_sh), donate_argnums=(2,),
+                    kind="prefill", rules=rules, make_args=make_args)
+
+    # decode: one new token against a cache of spec.seq positions
+    tok_specs = {"tokens": ins["tokens"]}
+
+    def step(model, token, caches, cache_len):
+        tok = _local(token["tokens"])
+        clen = _local(cache_len)
+        return run(model, lambda c: model.decode_step(tok, c, clen), caches)
+
+    def make_args(device=None, *, seed: int = 0, batch=None):
+        """(model, token, caches of ``spec.seq`` positions, cache length
+        ``spec.seq - 1``: the last position is written)."""
+        dev = resolve_device(device)
+        model = model_on(dev, seed)
+        if batch is None:
+            gen = torch.Generator(device=dev).manual_seed(seed + 1)
+            batch = _inputs(cfg, tok_specs, gen, dev)
+        caches = init_cache(cfg, spec.batch, spec.seq, cfg.compute_dtype, dev)
+        clen = torch.tensor(spec.seq - 1, dtype=torch.int32, device=dev)
+        return (model, layout(mesh, batch, batch_sh_tok),
+                layout(mesh, caches, cache_sh),
+                layout(mesh, clen, clen_sh))
+
+    batch_sh_tok = {"tokens": batch_sh["tokens"]}
+    clen_sh = batch_sh["cache_len"]
+    return Cell(arch, shape, cfg, step, (tok_specs, cache_specs, ins["cache_len"]),
+                (batch_sh_tok, cache_sh, clen_sh), donate_argnums=(2,),
+                kind="decode", rules=rules, make_args=make_args)
+
+
+class _Spec:
+    """A ``(shape, dtype)`` spec with the ``shape`` that
+    ``shardings_from_axes`` reads."""
+
+    def __init__(self, spec):
+        self.shape, self.dtype = spec
+
+
+def _cache_specs(cfg: ModelConfig, batch: int, max_len: int) -> list:
+    """``(shape, dtype)`` of ``init_cache``'s leaves, nothing allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        caches = init_cache(cfg, batch, max_len, cfg.compute_dtype, "cpu")
+    return _map(lambda t: (tuple(t.shape), t.dtype), caches)
+
+
+def _state_tensors(args) -> list:
+    """The local tensors of a step's arguments or results: a model's
+    parameters, an optimizer's state, and the tensors of dict/list/tuple
+    trees, each DTensor as this rank's shard."""
+    out = []
+    for a in (args if isinstance(args, tuple) else (args,)):
+        if isinstance(a, nn.Module):
+            out.extend(a.parameters())
+        elif isinstance(a, torch.optim.Optimizer):
+            out.extend(t for st in a.state.values()
+                       for t in (st.values() if isinstance(st, dict) else [st])
+                       if isinstance(t, torch.Tensor))
+        else:
+            out.extend(t for t in _leaves(a) if isinstance(t, torch.Tensor))
+    return [t.to_local() if isinstance(t, DTensor) else t for t in out]
+
+
+def lower_cell(cell: Cell, mesh, *, device: str | None = None) -> Trace:
+    """The cell's step run once on fake tensors of ``device`` (default
+    ``trace_device()``) under a ``TraceRecorder``: its ``Trace``, with the
+    memory of one device (arguments, outputs, in-place updates as alias,
+    peak).  The mesh is over the caller's process group (a fake one of the
+    mesh's size for a dry run)."""
+    import time
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    dev = device or trace_device()
+    set_mesh_rules(cell.rules or {})
+    set_active_mesh(mesh)
+    rec = TraceRecorder(dev, mesh.size() if mesh is not None else 1)
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        args = cell.make_args(dev)
+        rec.hold(_state_tensors(args))
+        with rec:
+            out = cell.step(*args)
+        updated = [args[i] for i in cell.donate_argnums] \
+            if cell.kind == "train" else []
+        rec.finish(_state_tensors(out), _state_tensors(tuple(updated)))
+    rec.trace.seconds = time.perf_counter() - t0
+    return rec.trace

@@ -80,11 +80,14 @@ def _cache_write(cache_arr, new_vals, idx):
     idx of every row.  A scalar idx is ``dynamic_update_slice``'s, clamped
     so the write fits; a (B,) idx writes each row at its own position."""
     out = cache_arr.clone()
-    idx = torch.as_tensor(idx)
-    if idx.dim() == 0:
+    if not isinstance(idx, torch.Tensor):
         i = min(max(int(idx), 0), cache_arr.shape[1] - 1)
         out[:, i:i + 1] = new_vals.to(cache_arr.dtype)
         return out
+    if idx.dim() == 0:  # clamped on the device: no read on the host
+        i = idx.to(cache_arr.device, torch.long).clamp(
+            0, cache_arr.shape[1] - 1).reshape(1)
+        return out.index_copy_(1, i, new_vals.to(cache_arr.dtype))
     B = cache_arr.shape[0]
     rows = torch.arange(B, device=cache_arr.device)
     out[rows, idx.to(cache_arr.device)] = new_vals[:, 0].to(cache_arr.dtype)

@@ -343,8 +343,11 @@ class _Redistribute(torch.autograd.Function):
         ctx.mesh, ctx.placements, ctx.target = mesh, placements, target
         out = DTensor.from_local(local, mesh, placements, run_check=False
                                  ).redistribute(mesh, target).to_local()
-        # a new tensor even where the layout does not change
-        return out.clone() if out.data_ptr() == local.data_ptr() else out
+        # a new tensor even where the layout does not change (the same
+        # storage at the same offset; a fake tensor has no data pointer)
+        same = (out.untyped_storage()._cdata == local.untyped_storage()._cdata
+                and out.storage_offset() == local.storage_offset())
+        return out.clone() if same else out
 
     @staticmethod
     def backward(ctx, g):

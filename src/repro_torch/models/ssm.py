@@ -95,7 +95,14 @@ def ssm_forward(cfg: ModelConfig, p, x: torch.Tensor,
     f32 = torch.float32
 
     z = dot(x, p["w_z"])
-    xbc = _causal_conv(_xbc(x, p), p["conv_w"], p["conv_b"])
+    raw = _xbc(x, p)
+    # the cache's conv window: the last K-1 pre-conv inputs, kept from this
+    # one computation (the reference computes the projections again for it,
+    # and XLA's CSE merges the two)
+    tailwin = raw[:, -(cfg.ssm_conv - 1):].clone() if cache is not None \
+        else None
+    xbc = _causal_conv(raw, p["conv_w"], p["conv_b"])
+    del raw
     xin, Bp, Cp = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
 
     dt = softplus(dot(x, p["w_dt"]).float() + p["dt_bias"])    # (B,S,H)
@@ -143,8 +150,6 @@ def ssm_forward(cfg: ModelConfig, p, x: torch.Tensor,
 
     new_cache = None
     if cache is not None:
-        K = cfg.ssm_conv
-        tailwin = _xbc(x, p)[:, -(K - 1):]  # last K-1 pre-conv inputs
         new_cache = SSMCache(
             conv=tailwin.to(cache.conv.dtype),
             state=h.to(cache.state.dtype),

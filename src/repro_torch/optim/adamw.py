@@ -124,7 +124,10 @@ class AdamW(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        step = int(self.state["step"]) + 1
+        # the step, learning rate and bias corrections stay 0-d float32
+        # tensors (no host read: the dry run traces this on fake tensors);
+        # as scalars of the update they round as Python floats would
+        step = self.state["step"] + 1
         grads = {p: p.grad if p.grad is not None else torch.zeros_like(p)
                  for g in self.param_groups for p in g["params"]}
         if not grads:
@@ -134,13 +137,13 @@ class AdamW(torch.optim.Optimizer):
                                for d in grads.values()))
         scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
         f32 = torch.float32
-        step_f = torch.tensor(float(step), dtype=f32)
+        step_f = step.to(f32)
         for group in self.param_groups:
             lr = group["lr"]
-            lr = float(lr(step)) if callable(lr) else lr
+            lr = lr(step).to(f32) if callable(lr) else lr
             b1, b2, eps = group["b1"], group["b2"], group["eps"]
-            bc1 = float(1.0 - torch.tensor(b1, dtype=f32) ** step_f)
-            bc2 = float(1.0 - torch.tensor(b2, dtype=f32) ** step_f)
+            bc1 = 1.0 - torch.tensor(b1, dtype=f32) ** step_f
+            bc2 = 1.0 - torch.tensor(b2, dtype=f32) ** step_f
             for p in group["params"]:
                 st = self.moments(p)
                 g = grads[p].float() * scale
@@ -157,7 +160,7 @@ class AdamW(torch.optim.Optimizer):
                     st["vq"], st["vs"] = _quantize_v(v)
                 else:
                     st["v"] = v
-        self.state["step"] = torch.tensor(step, dtype=torch.int32)
+        self.state["step"] = step
         return loss
 
     def state_axes(self, param_axes) -> dict:

@@ -19,7 +19,10 @@ configs in fp32 on the card equal their CPU run, in a forward pass and in
 a training step, and a preempted training run resumes on the card.  On a
 mesh of one rank (NCCL, world size 1), training through the DTensor path
 equals the single-card run bit for bit, ``moe_forward_local`` equals the
-global path, and a checkpoint restores with ``shardings=``."""
+global path, and a checkpoint restores with ``shardings=``.  The dry run
+traces a cell on fake CUDA tensors with the counts it gives on the CPU,
+and a decode step's cache write at a tensor length equals the write at
+an int one."""
 import numpy as np
 import pytest
 import torch
@@ -1206,3 +1209,62 @@ def test_checkpoint_restores_with_shardings_on_card(nccl_one, tmp_path):
     for k, v in back.items():
         assert tuple(v.placements) == pl[k] and v.device.type == "cuda"
         assert torch.equal(v.full_tensor(), full[k])
+
+
+# ---------------------------------------------------------------------------
+# the dry run on the card
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_dry_run_on_fake_cuda_counts_as_on_the_cpu(card, shape):
+    """The smoke llama's cell at (1, 1) over a fake group of one rank,
+    traced on fake CUDA tensors and on fake CPU tensors: the same ops,
+    flops and memory."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import analyze_trace
+    from repro_torch.launch.mesh import make_host_mesh
+
+    spec = {"train_4k": ShapeSpec("train_4k", 256, 8, "train"),
+            "decode_32k": ShapeSpec("decode_32k", 512, 8, "decode")}[shape]
+    traces = {}
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=1)
+    try:
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setitem(steps.SHAPES, shape, spec)
+            for dev in ("cuda", "cpu"):
+                mesh = make_host_mesh((1, 1), device=dev)
+                cell = steps.build_cell("llama3.2-1b", shape, mesh,
+                                        smoke=True, unroll=False)
+                traces[dev] = steps.lower_cell(cell, mesh, device=dev)
+    finally:
+        steps.set_active_mesh(None)
+        steps.set_mesh_rules({})
+        dist.destroy_process_group()
+    gpu, cpu = traces["cuda"], traces["cpu"]
+    assert gpu.device == "cuda" and cpu.device == "cpu"
+    assert [r.op for r in gpu.ops] == [r.op for r in cpu.ops]
+    assert analyze_trace(gpu, 1).flops == analyze_trace(cpu, 1).flops > 0
+    assert gpu.memory == cpu.memory
+
+
+def test_decode_cache_write_at_a_tensor_length_on_card(card):
+    """``decode_step`` at a 0-d tensor cache length (written on the card,
+    no host read) equals the step at the same int length, bit for bit."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import init_cache, init_params
+
+    cfg = get_smoke_config("llama3.2-1b")
+    m = init_params(cfg, 0, device="cuda")
+    tok = torch.randint(0, cfg.vocab, (2, 9), device="cuda")
+    _, caches = m.prefill(tok[:, :8], init_cache(cfg, 2, 12, device="cuda"))
+    a, ca = m.decode_step(tok[:, 8:], caches, 8)
+    b, cb = m.decode_step(tok[:, 8:], caches,
+                          torch.tensor(8, dtype=torch.int32, device="cuda"))
+    assert torch.equal(a, b)
+    for x, y in zip(ca, cb):
+        for slot in x:
+            for k in x[slot]:
+                assert torch.equal(x[slot][k], y[slot][k])

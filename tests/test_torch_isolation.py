@@ -40,8 +40,8 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(names) >= 15 and bad.strip() == "[]"
     # the server, the fault injectors and the static analysis too, its
     # kernel pass and CLI, the LM stack's models and configs, and its
-    # optimizer, data stream, checkpoints and training loop, and the
-    # mesh construction and placements
+    # optimizer, data stream, checkpoints and training loop, the mesh
+    # construction and placements, and the dry-run tooling
     assert {"repro_torch.faults", "repro_torch.launch.serve",
             "repro_torch.analyze.plan_lint", "repro_torch.analyze.hazards",
             "repro_torch.analyze.cache_check",
@@ -55,7 +55,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.optim.adamw", "repro_torch.data.pipeline",
             "repro_torch.ckpt.checkpoint", "repro_torch.launch.train",
             # the mesh path
-            "repro_torch.launch.mesh", "repro_torch.launch.steps"} <= names
+            "repro_torch.launch.mesh", "repro_torch.launch.steps",
+            # the dry-run tooling
+            "repro_torch.launch.hlo_analysis", "repro_torch.launch.roofline",
+            "repro_torch.launch.dryrun", "repro_torch.launch.perf"} <= names
     assert {f"repro_torch.configs.{m}" for m in (
         "llama3_2_1b", "mamba2_1_3b", "deepseek_v3_671b",
         "jamba_1_5_large_398b", "dbrx_132b", "granite_20b", "yi_6b",
