@@ -2384,7 +2384,10 @@ def mesh_phase(h1_losses: list) -> dict:
 
 #: phase (j), the dry run (``launch.dryrun``; no kernel of its own).  (j1)
 #: production cells through the CLI, each in a child process (its fake
-#: process group must not meet (j2)'s NCCL group): (arch, shape, mesh)
+#: process group must not meet (j2)'s NCCL group), and each again at
+#: (1, 1) (``_dry_one``): per-device flops times the devices at least the
+#: (1, 1) count, so that splitting the work over the mesh dropped none:
+#: (arch, shape, mesh)
 DRY_CELLS = (("llama3.2-1b", "train_4k", "single"),
              ("llama3.2-1b", "prefill_32k", "single"),
              ("llama3.2-1b", "decode_32k", "single"),
@@ -2458,6 +2461,17 @@ def _dry_child(smoke: bool) -> None:
     finally:
         dist.destroy_process_group()
     print("DRY", json.dumps(out), flush=True)
+
+
+def _dry_one(arch: str, shape: str) -> None:
+    """(j1) One production cell's dry run at (1, 1) (a fake process group
+    of one rank), its record under ``dryrun.RESULTS`` as ``<cell>__one``."""
+    from repro_torch.launch import dryrun
+
+    dryrun.MESHES["one"] = ((1, 1), ("data", "model"))
+    rec = dryrun.run_cell(arch, shape, "one", force=True)
+    if not rec.get("ok"):
+        raise SystemExit(rec.get("traceback", rec.get("error")))
 
 
 def _dry_real(mesh, shape: str, spec) -> dict:
@@ -2612,6 +2626,12 @@ def dryrun_phase() -> dict:
                 [sys.executable, "-m", "repro_torch.launch.dryrun",
                  "--arch", arch, "--shape", shape, "--mesh", mesh, "--force"],
                 logs / f"{arch}__{shape}__{mesh}.log")
+            procs[(arch, shape, "one")] = _start(
+                [sys.executable, "-c",
+                 f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
+                 f"{str(ROOT / 'src')!r}]; import chip_smoke; "
+                 f"chip_smoke._dry_one({arch!r}, {shape!r})"],
+                logs / f"{arch}__{shape}__one.log")
         code = (f"import sys; sys.path[:0] = [{str(ROOT)!r}, "
                 f"{str(ROOT / 'src')!r}]; import chip_smoke; "
                 f"chip_smoke._dry_child({DRY_SMOKE!r})")
@@ -2624,7 +2644,7 @@ def dryrun_phase() -> dict:
         dry = json.loads(lines[-1][4:])
         for shape, rec in real.items():
             _dry_check(rec, dry[shape])
-        records = {}
+        records, one = {}, {}
         for key, p in procs.items():
             if key == "j2":
                 continue
@@ -2638,6 +2658,9 @@ def dryrun_phase() -> dict:
                     + rec.get("error", (logs / f"{arch}__{shape}__{mesh}.log"
                                         ).read_text()[-3000:]))
             rf = rec["roofline"]
+            if mesh == "one":
+                one[arch, shape] = rf
+                continue
             records[f"{arch}/{shape}/{mesh}"] = {
                 "devices": rec["devices"], "trace_device": rec["trace_device"],
                 "n_ops": rec["n_ops"], "bound": rf["bound"],
@@ -2654,6 +2677,18 @@ def dryrun_phase() -> dict:
                 "memory_analysis": rf["memory_analysis"],
                 "lower_s": rec["lower_s"], "compile_s": rec["compile_s"],
                 "wall_s": rec["wall_s"]}
+        for key, r in records.items():
+            arch, shape, _ = key.split("/")
+            rf = one[arch, shape]
+            r.update(flops_1x1=rf["flops_per_device"],
+                     gib_1x1=rf["memory_analysis"]["total_nonaliased_bytes"]
+                     / 2 ** 30,
+                     t_compute_1x1_s=rf["t_compute_s"])
+            if r["flops_per_device"] * r["devices"] < r["flops_1x1"]:
+                raise AssertionError(
+                    f"(j1) {key}: {r['flops_per_device']} flops a device "
+                    f"x {r['devices']} < {r['flops_1x1']} at (1, 1): the "
+                    f"mesh dropped work")
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -2924,15 +2959,20 @@ def main() -> None:
     print("dryrun", json.dumps(rec), flush=True)
     for key, r in rec["j1"].items():
         m = r["memory_analysis"]
+        wire = r["collective_wire_bytes_per_device"]
+        inter = r["collective_wire_bytes_per_device_internode"]
         print(f"(j1) {key} ({r['devices']} ranks, fake {r['trace_device']} "
-              f"tensors, {r['n_ops']} ops): bound {r['bound']}, terms "
-              f"compute {r['t_compute_s']:.4g} s, memory "
-              f"{r['t_memory_s']:.4g} s, collective {r['t_collective_s']:.4g}"
-              f" s ({r['collective_wire_bytes_per_device_internode'] / 1e9:.4g}"
-              f" of {r['collective_wire_bytes_per_device'] / 1e9:.4g} GB "
-              f"across nodes); mfu_at_roofline {r['mfu_at_roofline']:.4g}; "
-              f"{m['total_nonaliased_bytes'] / 2 ** 30:.2f} GiB a device, "
-              f"fits_80g {m['fits_80g']}; trace {r['lower_s']:.1f} s, "
+              f"tensors, {r['n_ops']} ops): flops a device "
+              f"{r['flops_per_device']:.6g} (x {r['devices']} >= "
+              f"{r['flops_1x1']:.6g} at (1, 1)); wire bytes a device "
+              f"{inter / 1e9:.6g} GB across nodes, {(wire - inter) / 1e9:.6g}"
+              f" GB within; {m['total_nonaliased_bytes'] / 2 ** 30:.3f} GiB "
+              f"a device ({r['gib_1x1']:.3f} at (1, 1)), fits_80g "
+              f"{m['fits_80g']}; bound {r['bound']}, terms compute "
+              f"{r['t_compute_s']:.4g} s, memory {r['t_memory_s']:.4g} s, "
+              f"collective {r['t_collective_s']:.4g} s; mfu_at_roofline "
+              f"{r['mfu_at_roofline']:.4g}; collectives "
+              f"{r['collective_counts']}; trace {r['lower_s']:.1f} s, "
               f"analysis {r['compile_s']:.2f} s, wall {r['wall_s']:.1f} s",
               flush=True)
     for r in rec["j2"].values():

@@ -27,16 +27,21 @@ aten program on either.  The same ``Cell`` run on real tensors
 (``cell.make_args`` outside a fake mode, then ``cell.step``) is the real
 step: one construction, two executions.
 
-A step computes as the port's mesh path does (``models.common``): the
-weights gathered whole per layer, a batch split over the data axes, and
-compute over ``"model"`` replicated.  A prefill or decode step gathers its
-cache over the non-data mesh dims it is split over (the decode cells' rule
-puts the cache's positions on ``"model"``), runs on this data rank's rows,
-and lays the new cache out as the old one.
+A step computes as the port's mesh path does (``models.common``): a
+batch split over the data axes (the "batch" rule's; ``long_500k`` splits
+none), each layer's weights gathered over the data axes with their
+"model" split kept, and each model rank computing its share of the heads,
+mlp columns, experts, vocab rows and SSD heads, as GSPMD splits the
+reference's program.  A prefill or decode step runs on the cache as it is
+laid out, this rank's block: its data rank's rows, its share of the
+positions where the rules split them (``decode_32k`` puts them on
+"model", ``long_500k`` on every dim), its SSD heads.  Only the SSM's conv
+window, its last ``K - 1`` pre-conv inputs, is gathered whole (over the
+dims that split its channels), and each rank keeps its slice of the new
+one.
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Callable
@@ -49,10 +54,11 @@ from repro_torch.configs import SHAPES, get_config, get_smoke_config, input_spec
 from repro_torch.device import resolve_device
 from repro_torch.launch.hlo_analysis import Trace, TraceRecorder
 from repro_torch.models.common import (
-    DATA_AXES,
-    Mesh_Rules,
     ModelConfig,
     _resolve,
+    axes_size,
+    data_axes,
+    position_axes,
     set_active_mesh,
     set_mesh_rules,
     spec_placements,
@@ -253,8 +259,9 @@ def layout(mesh, tensors, placements):
 
 def _kept(t, bdim: int) -> tuple:
     """The data axes that split ``t``'s batch dim ``bdim``."""
+    dp = data_axes(t.device_mesh)
     return tuple(a for a, p in zip(t.device_mesh.mesh_dim_names, t.placements)
-                 if a in DATA_AXES and p == Shard(bdim))
+                 if a in dp and p == Shard(bdim))
 
 
 def _local(t, bdim: int = 0):
@@ -268,32 +275,57 @@ def _local(t, bdim: int = 0):
     return whole(t, keep=_kept(t, bdim))
 
 
-def _relay(x, like, bdim: int = 1):
-    """A local result laid out as the DTensor ``like`` (this rank keeps
-    its slice of what it gathered; no collective)."""
+def _cache_in(name: str, t):
+    """A cache leaf (layers, batch, ...) as the model computes on it: this
+    rank's block as laid out, but the SSM's conv window, gathered over the
+    dims that split its channels."""
+    if not isinstance(t, DTensor):
+        return t
+    return _local(t, 1) if name == "conv" else t.to_local()
+
+
+def _cache_out(name: str, x, like):
+    """A new cache leaf laid out as the old one ``like`` (no collective: a
+    conv window keeps this rank's slice of the whole)."""
     if not isinstance(like, DTensor):
         return x
-    mesh, keep = like.device_mesh, _kept(like, bdim)
+    mesh = like.device_mesh
+    if name != "conv":
+        return DTensor.from_local(x, mesh, like.placements, run_check=False,
+                                  shape=like.shape, stride=like.stride())
+    keep = _kept(like, 1)
     gathered = [p if a in keep else Replicate()
                 for a, p in zip(mesh.mesh_dim_names, like.placements)]
     return DTensor.from_local(x, mesh, gathered, run_check=False
                               ).redistribute(mesh, like.placements)
 
 
-@contextlib.contextmanager
-def _batch_split(mesh, split: bool):
-    """The mesh active while a step runs where the batch is split over the
-    data axes; none where the rules keep the whole batch on every rank
-    (``long_500k``), so the model does not take its rows for a data
-    rank's (its parameters stay DTensors, gathered as they are used)."""
-    if split:
-        yield
+def _cache_map(fn, *trees):
+    """``fn(name, *leaves)`` over parallel cache trees (per segment, per
+    slot, each leaf by name)."""
+    return [{slot: {k: fn(k, *(t[si][slot][k] for t in trees))
+                    for k in seg[slot]} for slot in seg}
+            for si, seg in enumerate(trees[0])]
+
+
+def _check_positions(cfg: ModelConfig, mesh, cache_specs, cache_sh) -> None:
+    """Raise unless every attention cache's positions are split as the
+    rules ask (the model reads the split from the rules): a cache whose
+    positions do not divide over those ranks is left whole by the plan."""
+    pos = position_axes(mesh)
+    if not pos:
         return
-    set_active_mesh(None)
-    try:
-        yield
-    finally:
-        set_active_mesh(mesh)
+    names = list(mesh.mesh_dim_names)
+    for si, seg in enumerate(cache_sh):
+        for slot, leaves in seg.items():
+            for k in ("k", "v"):
+                if k in leaves and any(leaves[k][names.index(a)] != Shard(2)
+                                       for a in pos):
+                    T = cache_specs[si][slot][k][0][2]
+                    raise ValueError(
+                        f"{cfg.name}: a cache of {T} positions does not "
+                        f"divide over the {axes_size(mesh, pos)} ranks of "
+                        f"{pos}")
 
 
 def _inputs(cfg: ModelConfig, ins: dict, gen, dev) -> dict:
@@ -329,10 +361,6 @@ def build_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
         rules = dict(SHAPE_RULES.get(shape, {}))
     set_mesh_rules(rules)
     set_active_mesh(mesh)
-    batch_rule = Mesh_Rules().get("batch")
-    split = mesh is not None and any(
-        a in DATA_AXES for a in (batch_rule if isinstance(batch_rule, tuple)
-                                 else (batch_rule,)))
 
     def place(specs, axes):
         if mesh is None:
@@ -345,6 +373,8 @@ def build_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
     if spec.kind != "train":
         cache_specs = _cache_specs(cfg, spec.batch, spec.seq)
         cache_sh = place(cache_specs, cache_axes_tree(cfg))
+        if mesh is not None:
+            _check_positions(cfg, mesh, cache_specs, cache_sh)
 
     def model_on(dev, seed):
         model = init_params(cfg, seed, device=dev)
@@ -355,8 +385,7 @@ def build_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
     if spec.kind == "train":
         def step(model, optimizer, batch):
             local = {k: _local(v) for k, v in batch.items()}
-            with _batch_split(mesh, split):
-                return train_step_fn(cfg, optimizer)(model, local)
+            return train_step_fn(cfg, optimizer)(model, local)
 
         def make_args(device=None, *, seed: int = 0, batch=None):
             """(model, optimizer with its state made, batch): ``batch``
@@ -376,10 +405,8 @@ def build_cell(arch: str, shape: str, mesh, *, smoke: bool = False,
                     make_args=make_args)
 
     def run(model, fn, caches):
-        local = _map(lambda c: _local(c, 1), caches)  # (layers, batch, ...)
-        with _batch_split(mesh, split):
-            logits, new = fn(local)
-        return logits, _map(_relay, new, caches)
+        logits, new = fn(_cache_map(_cache_in, caches))
+        return logits, _cache_map(_cache_out, new, caches)
 
     if spec.kind == "prefill":
         def step(model, batch, caches):

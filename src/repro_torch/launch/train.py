@@ -132,6 +132,7 @@ def train(
     mesh = None
     if dist.is_initialized() or tuple(mesh_shape) != (1, 1):
         mesh = make_host_mesh(tuple(mesh_shape), device=dev)
+        set_mesh_rules({})  # the batch's rule splits it over the data axes
     n_dp = data_size(mesh)
     r_dp = data_rank(mesh) if mesh is not None else 0
     if batch % n_dp:
@@ -140,7 +141,6 @@ def train(
     rows = slice(r_dp * batch // n_dp, (r_dp + 1) * batch // n_dp)
     prev_mesh = active_mesh()
     if mesh is not None:
-        set_mesh_rules({})
         set_active_mesh(mesh)
     try:
         return _train(cfg, mesh, rows, steps=steps, batch=batch, seq=seq,

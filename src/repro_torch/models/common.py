@@ -6,12 +6,20 @@ Sharding.  The reference maps each tensor's logical axes to mesh axes by
 rules (``DEFAULT_RULES``) and lets GSPMD place the compute.  The port keeps
 the rules and resolves them to DTensor placements (``logical_sharding``)
 where tensors are made: parameters and optimizer state live on the mesh as
-DTensors, each layer's weights are gathered whole before use (``whole``:
-the FSDP all-gather, whose backward pass sums the gradient over the data
-axes and keeps this rank's shard), and a batch is split over the data axes
-(``"pod"``, ``"data"``), each data rank holding its contiguous rows.  Compute
-over ``"model"`` is replicated, except ``moe_forward_local``'s experts.  So
-``shard``, the reference's sharding constraint, is the identity here.
+DTensors and a batch is split over the data axes (the "batch" rule's,
+``data_axes``), each data rank holding its contiguous rows.  Each layer
+gathers its weights over the data axes and keeps their "model" split
+(``whole(w, keep=("model",))``: the FSDP all-gather, whose backward pass
+sums the gradient over the data axes into this rank's shard), and computes
+its share of the heads, mlp columns, experts, vocab rows or SSD heads
+(``Split``, ``take``) between Megatron's collectives over "model":
+``fan_out_model`` where split compute starts (identity forward, its
+gradient summed) and ``combine_model`` where it ends (the partial outputs
+summed, identity backward).  So the work over "model" is split as GSPMD
+splits it from the reference's constraints, and ``shard``, that
+constraint, is the identity here.  Under ``gather_bf16`` a layer's
+weights are gathered whole, as the reference's ``model.py:325-332`` does,
+and its compute is replicated over "model".
 
 Casts mirror the reference's: ``jnp.dot`` and ``jnp.einsum`` compute in
 their operands' common dtype (``dot``, ``einsum`` below promote the same
@@ -96,10 +104,12 @@ class ModelConfig:
     kv_chunk: int = 1024
 
     # remat: activation checkpointing of each repetition of a segment's
-    # pattern in training ("full" | "dots" | "none"; model.py).  unroll and
-    # gather_bf16, the reference's scan and FSDP-payload knobs, are kept for
-    # field parity and change nothing here: the layers run in a Python loop,
-    # and a weight is gathered in its own dtype.
+    # pattern in training ("full" | "dots" | "none"; model.py).  unroll,
+    # the reference's scan knob, is kept for field parity and changes
+    # nothing here: the layers run in a Python loop.  gather_bf16 gathers
+    # each layer's weights whole on a mesh, as the reference's FSDP-payload
+    # knob does, so the layer's compute is replicated over "model" (a
+    # weight is gathered in its own dtype).
     remat: str = "full"
     unroll: bool = False
     gather_bf16: bool = False
@@ -201,10 +211,6 @@ DEFAULT_RULES: dict[str, Any] = {
     "act_embed": None,       # activation d_model dim
 }
 
-#: the mesh axes a batch is split over, outer first; the rest ("model")
-#: replicate the batch
-DATA_AXES = ("pod", "data")
-
 _MESH_RULES: dict[str, Any] = dict(DEFAULT_RULES)
 
 
@@ -288,46 +294,101 @@ def active_mesh():
 
 def shard(x: torch.Tensor, *axes: str | None) -> torch.Tensor:
     """The reference's sharding constraint by logical axis names.  The
-    identity, with or without a mesh: the port lays tensors out where they
-    are made (parameters and optimizer state as DTensors, a batch split
-    over the data axes) and computes on local tensors, so there is no
-    compiler to steer."""
+    identity: the port has no compiler to steer.  Its layers compute, on
+    local tensors, the layout the reference's constraints ask GSPMD for:
+    each model rank its share of the heads, mlp columns, experts, vocab
+    rows or SSD heads (``Split``), between Megatron's column- and
+    row-parallel collectives (``fan_out_model`` where a split region
+    starts, ``combine_model`` where it ends)."""
     return x
 
 
 # ---------------------------------------------------------------------------
 # collectives over a mesh, with the backward passes the model needs
 # ---------------------------------------------------------------------------
+def _dim_size(mesh, axis: str) -> int:
+    """The size of ``mesh``'s dim ``axis`` (1 where it has none)."""
+    names = list(mesh.mesh_dim_names)
+    return mesh.size(names.index(axis)) if axis in names else 1
+
+
+def _rule_axes(mesh, axes: tuple, i: int) -> tuple[str, ...]:
+    """The mesh dims the rules give entry ``i`` of logical ``axes``."""
+    if mesh is None:
+        return ()
+    sp = _resolve(axes, mesh)[i]
+    if sp is None:
+        return ()
+    return sp if isinstance(sp, tuple) else (sp,)
+
+
 def data_axes(mesh) -> tuple[str, ...]:
-    """``mesh``'s dims that split the batch, outer first."""
-    return tuple(a for a in DATA_AXES if a in mesh.mesh_dim_names)
+    """``mesh``'s dims that split the batch, outer first: the "batch"
+    rule's (none under ``long_500k``'s rules, whose one row every rank
+    holds)."""
+    return _rule_axes(mesh, ("batch",), 0)
+
+
+def position_axes(mesh) -> tuple[str, ...]:
+    """The mesh dims that split a KV cache's positions, outer first: the
+    "seq_kv" rule's less the batch's (``decode_32k``: "model";
+    ``long_500k``: every dim; the other shapes: none)."""
+    return _rule_axes(mesh, ("batch", "seq_kv"), 1)
+
+
+def axes_size(mesh, axes) -> int:
+    """The number of ranks over ``mesh``'s dims ``axes``."""
+    n = 1
+    for a in axes:
+        n *= _dim_size(mesh, a)
+    return n
+
+
+def axes_rank(mesh, axes) -> int:
+    """This rank's index over ``mesh``'s dims ``axes``, outer axis major:
+    its block of a dim split over them."""
+    r = 0
+    for a in axes:
+        r = r * _dim_size(mesh, a) + mesh.get_local_rank(a)
+    return r
 
 
 def data_size(mesh) -> int:
     """Number of data ranks (1 without a mesh)."""
-    n = 1
-    for a in (data_axes(mesh) if mesh is not None else ()):
-        n *= mesh.size(list(mesh.mesh_dim_names).index(a))
-    return n
+    return axes_size(mesh, data_axes(mesh))
 
 
 def data_rank(mesh) -> int:
     """This rank's index among the data ranks, outer axis major: its rows
     of a batch split over the data axes are the ``data_rank``-th block."""
-    r = 0
-    for a in data_axes(mesh):
-        r = r * mesh.size(list(mesh.mesh_dim_names).index(a)) \
-            + mesh.get_local_rank(a)
-    return r
+    return axes_rank(mesh, data_axes(mesh))
 
 
-def _sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """``x`` summed over the ranks of ``mesh``'s dims ``axes`` (a copy)."""
+def model_size(mesh) -> int:
+    """Number of model ranks (1 without a mesh)."""
+    return _dim_size(mesh, "model") if mesh is not None else 1
+
+
+def _sum_over(x: torch.Tensor, mesh, axes,
+              op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced (summed) over the ranks of ``mesh``'s dims ``axes``
+    (a copy)."""
     x = x.clone()
     for a in axes:
-        if mesh.size(list(mesh.mesh_dim_names).index(a)) > 1:
-            dist.all_reduce(x, group=mesh.get_group(a))
+        if _dim_size(mesh, a) > 1:
+            dist.all_reduce(x, op=op, group=mesh.get_group(a))
     return x
+
+
+def max_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise maximum of ``x`` over ``axes``' ranks (no
+    gradient)."""
+    return _sum_over(x.detach(), mesh, axes, dist.ReduceOp.MAX)
+
+
+def sum_over(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``' ranks (no gradient)."""
+    return _sum_over(x.detach(), mesh, axes)
 
 
 class _Redistribute(torch.autograd.Function):
@@ -335,7 +396,7 @@ class _Redistribute(torch.autograd.Function):
     under ``target``.  Backward: the incoming gradient is partial over the
     data axes (each data rank saw its own rows) and equal over the others;
     it is summed over the data axes and laid out by ``placements`` again
-    (where ``target`` replicates a model-axis dim, each rank keeps its
+    (where ``target`` keeps a model-axis split, each rank keeps its
     slice)."""
 
     @staticmethod
@@ -352,7 +413,8 @@ class _Redistribute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         mesh = ctx.mesh
-        src = [Partial() if a in DATA_AXES else t
+        dp = data_axes(mesh)
+        src = [Partial() if a in dp else t
                for a, t in zip(mesh.mesh_dim_names, ctx.target)]
         out = DTensor.from_local(g.contiguous(), mesh, src, run_check=False
                                  ).redistribute(mesh, ctx.placements)
@@ -368,10 +430,11 @@ def _relayout(local: torch.Tensor, mesh, placements, target) -> torch.Tensor:
 
 
 def whole(t: torch.Tensor, keep: tuple[str, ...] = ()) -> torch.Tensor:
-    """A parameter for compute: a DTensor gathered whole over every mesh dim
-    but those named in ``keep`` (the FSDP all-gather; its gradient is summed
+    """A parameter for compute: a DTensor gathered over every mesh dim but
+    those named in ``keep`` (the FSDP all-gather; its gradient is summed
     over the data axes and lands in this rank's shard), a plain tensor as
-    it is."""
+    it is.  ``keep=("model",)`` leaves a weight split on "model" split:
+    this rank's share of its heads, columns, experts or vocab rows."""
     if not isinstance(t, DTensor):
         return t
     mesh = t.device_mesh
@@ -384,38 +447,176 @@ def gather_rows(x: torch.Tensor, mesh) -> torch.Tensor:
     """This data rank's rows (dim 0) of a batch -> the whole batch, in the
     global row order.  Backward: each rank's gradient summed over the data
     ranks, then its own rows kept."""
-    pl = [Shard(0) if a in DATA_AXES else Replicate()
-          for a in mesh.mesh_dim_names]
+    dp = data_axes(mesh)
+    pl = [Shard(0) if a in dp else Replicate() for a in mesh.mesh_dim_names]
     return _relayout(x, mesh, pl, [Replicate()] * len(pl))
 
 
 class _ModelSum(torch.autograd.Function):
-    """Megatron's pair over the "model" axis: ``forward`` sums over it and
-    the backward pass is the identity (``combine``: the compute after it is
-    replicated, so each rank's gradient is already the whole), or the
-    other way round (``fan_out``: what follows is split over the model
-    ranks, so each one's gradient is partial)."""
+    """Megatron's collectives over the "model" axis.  ``combine``: the
+    forward pass sums the model ranks' partial outputs, the backward pass
+    is the identity (the compute after it is replicated, so each rank's
+    gradient is already the whole).  ``fan_out``: the other way round (what
+    follows is split over the model ranks, so each one's gradient is
+    partial).  ``sum``: a sum both ways (a statistic of split compute that
+    split compute uses, as the gated norm's sum of squares)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, in_forward):
-        ctx.mesh, ctx.in_forward = mesh, in_forward
-        return _sum_over(x, mesh, ("model",)) if in_forward else x.clone()
+    def forward(ctx, x, mesh, mode):
+        ctx.mesh, ctx.mode = mesh, mode
+        if mode == "fan_out":
+            return x.view_as(x)
+        return _sum_over(x, mesh, ("model",))
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.in_forward:
+        if ctx.mode == "combine":
             return g, None, None
         return _sum_over(g, ctx.mesh, ("model",)), None, None
 
 
 def combine_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """Sum of the model ranks' partial outputs; identity backward."""
-    return _ModelSum.apply(x, mesh, True)
+    return _ModelSum.apply(x, mesh, "combine")
 
 
 def fan_out_model(x: torch.Tensor, mesh) -> torch.Tensor:
     """Identity forward; the model ranks' partial gradients summed."""
-    return _ModelSum.apply(x, mesh, False)
+    return _ModelSum.apply(x, mesh, "fan_out")
+
+
+def sum_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Sum over the model ranks, forward and backward."""
+    return _ModelSum.apply(x, mesh, "sum")
+
+
+@dataclass(frozen=True)
+class Split:
+    """This model rank's share of a dim of ``n`` units (heads, mlp columns,
+    experts, vocab rows, SSD heads) split over the "model" axis: units
+    ``[lo, lo + cnt)``, ``ceil(n / M)`` a rank, the last ranks' shares
+    shorter or empty where ``M`` does not divide ``n`` (GSPMD pads such a
+    split).  ``mesh`` is None where the dim is not split: no mesh, one
+    model rank, or a weight the rules leave whole (mamba2's vocab of 50,280
+    over 16 ranks; every layer weight under ``gather_bf16``); the compute is
+    then replicated and nothing is communicated."""
+    n: int
+    lo: int
+    cnt: int
+    mesh: Any = None
+
+    @property
+    def on(self) -> bool:
+        return self.mesh is not None
+
+    @property
+    def chunk(self) -> int:
+        return -(-self.n // model_size(self.mesh))
+
+
+def model_split(n: int, w: torch.Tensor, dim: int, unit: int = 1) -> Split:
+    """The split of a dim of ``n`` units of ``unit`` entries under the
+    active mesh, as its weight ``w`` holds it along ``dim``: split where
+    ``w`` holds less than all of it (the rules split it over "model")."""
+    mesh = active_mesh()
+    if model_size(mesh) == 1 or w.shape[dim] == n * unit:
+        return Split(n, 0, n)
+    return share(n, mesh)
+
+
+def share(n: int, mesh) -> Split:
+    """This rank's share of ``n`` units split over ``mesh``'s model
+    ranks."""
+    c = -(-n // model_size(mesh))
+    lo = min(mesh.get_local_rank("model") * c, n)
+    return Split(n, lo, min(c, n - lo), mesh)
+
+
+def gather_model(x: torch.Tensor, dim: int, s: Split,
+                 unit: int = 1) -> torch.Tensor:
+    """This rank's share ``x`` of a dim split as ``s`` (``unit`` entries a
+    unit along ``dim``) -> the whole dim on every model rank: each share
+    padded to ``s.chunk`` units, all-gathered, the padding dropped.
+    Backward: the gradient, partial on each rank (the whole feeds split
+    compute), summed over the model ranks and this rank's share kept."""
+    if not s.on:
+        return x
+    pad = (s.chunk - s.cnt) * unit
+    if pad:
+        shape = list(x.shape)
+        shape[dim] = pad
+        x = torch.cat([x, x.new_zeros(shape)], dim)
+    return _Exchange.apply(x, dim, s.mesh, ("model",), False).narrow(
+        dim, 0, s.n * unit)
+
+
+def take(s: Split, w: torch.Tensor, dim: int, unit: int = 1) -> torch.Tensor:
+    """This rank's units of weight ``w`` along ``dim`` for compute split as
+    ``s``: a weight split on "model" at unit boundaries as it is; one whose
+    even split of entries cuts units (llava's 56 heads over 16 ranks)
+    gathered first; a whole one (the rules leave it replicated) narrowed,
+    its gradient summed over the model ranks."""
+    if not s.on:
+        return w
+    M, width = model_size(s.mesh), w.shape[dim]
+    if width == s.n * unit:
+        w = fan_out_model(w, s.mesh)
+    elif s.n % M == 0:
+        return w
+    else:
+        r = s.mesh.get_local_rank("model")
+        w = gather_model(w, dim, Split(width * M, r * width, width, s.mesh))
+    return w.narrow(dim, s.lo * unit, s.cnt * unit)
+
+
+def _over(x: torch.Tensor, dim: int, mesh, axes, scatter: bool):
+    """``x`` reduce-scattered (``scatter``: summed over the ranks of
+    ``mesh``'s dims ``axes``, this rank's block of ``dim`` kept) or
+    all-gathered (the ranks' blocks of ``dim`` joined in rank order)."""
+    axes = [a for a in axes if _dim_size(mesh, a) > 1]
+    x = x.movedim(dim, 0)
+    for a in (axes if scatter else reversed(axes)):
+        n, grp = _dim_size(mesh, a), mesh.get_group(a)
+        x = x.contiguous()
+        if scatter:
+            out = x.new_empty((x.shape[0] // n,) + x.shape[1:])
+            dist.reduce_scatter_tensor(out, x, group=grp)
+        else:
+            out = x.new_empty((x.shape[0] * n,) + x.shape[1:])
+            dist.all_gather_into_tensor(out, x, group=grp)
+        x = out
+    return x.movedim(0, dim)
+
+
+class _Exchange(torch.autograd.Function):
+    """``_over``'s reduce-scatter and all-gather, each the other's
+    adjoint."""
+
+    @staticmethod
+    def forward(ctx, x, dim, mesh, axes, scatter):
+        ctx.args = (dim, mesh, axes, not scatter)
+        return _over(x, dim, mesh, axes, scatter)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_over(g, *ctx.args),) + (None,) * 4
+
+
+def scatter_data(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Each data rank's partial ``x`` -> their sum's block of ``dim`` that
+    this data rank owns (a reduce-scatter; backward: an all-gather)."""
+    if data_size(mesh) == 1:
+        return x
+    return _Exchange.apply(x, dim, mesh, data_axes(mesh), True)
+
+
+def gather_data(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The data ranks' blocks of ``dim`` joined in rank order (an
+    all-gather; backward: the gradient, partial on each rank, summed and
+    this rank's block kept)."""
+    if data_size(mesh) == 1:
+        return x
+    return _Exchange.apply(x, dim, mesh, data_axes(mesh), False)
 
 
 class _DataMean(torch.autograd.Function):
@@ -501,10 +702,21 @@ def gelu_mlp(x, w_up, w_down) -> torch.Tensor:
 
 def chunked_cross_entropy(h: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, *, chunk: int = 512,
-                          unroll: bool = False) -> torch.Tensor:
+                          unroll: bool = False,
+                          vocab: Split | None = None) -> torch.Tensor:
     """Mean CE without materializing (B, S, V) logits: a loop over sequence
-    chunks (the forward value; ``unroll`` is the reference's scan knob)."""
+    chunks (the forward value; ``unroll`` is the reference's scan knob).
+
+    ``vocab`` split (``head`` holds this model rank's vocab columns, as
+    the reference constrains the logits, ``common.py:309``): each rank
+    computes its columns' logits; the log-sum-exp takes the maximum and the
+    sum of exponentials over the model ranks, the target logit comes from
+    the rank that owns it, and the backward pass is the vocab-parallel
+    one (each rank's softmax less its one-hot columns)."""
     B, S, d = h.shape
+    split = vocab is not None and vocab.on
+    if split:
+        h = fan_out_model(h, vocab.mesh)
     nchunk = max(S // chunk, 1)
     chunk = S // nchunk
     h_c = h.reshape(B, nchunk, chunk, d)
@@ -512,10 +724,36 @@ def chunked_cross_entropy(h: torch.Tensor, head: torch.Tensor,
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(nchunk):
         logits = dot(h_c[:, i], head).float()                # (B, c, V)
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, y_c[:, i, :, None].long())[..., 0]
+        y = y_c[:, i, :, None].long()
+        if split:
+            m = max_over(logits.amax(-1, keepdim=True), vocab.mesh,
+                         ("model",))
+            se = combine_model(torch.exp(logits - m).sum(-1), vocab.mesh)
+            lse = m[..., 0] + torch.log(se)
+            local = y - vocab.lo
+            mine = (local >= 0) & (local < vocab.cnt)
+            tgt = torch.gather(logits, -1,
+                               local.clamp(0, max(vocab.cnt - 1, 0)))
+            tgt = combine_model(torch.where(mine, tgt, 0.0)[..., 0],
+                                vocab.mesh)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = torch.gather(logits, -1, y)[..., 0]
         total = total + torch.sum(lse - tgt)
     return total / (B * S)
+
+
+def lookup(table: torch.Tensor, tokens: torch.Tensor,
+           vocab: Split) -> torch.Tensor:
+    """The rows of ``table`` at ``tokens``.  Split: this model rank looks
+    up its own vocab rows, writes zeros for the others, and the model
+    ranks' rows are summed (each token's row comes from one rank)."""
+    if not vocab.on:
+        return table[tokens]
+    local = tokens - vocab.lo
+    mine = ((local >= 0) & (local < vocab.cnt))[..., None]
+    rows = table[local.clamp(0, max(vocab.cnt - 1, 0))]
+    return combine_model(torch.where(mine, rows, 0), vocab.mesh)
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -22,14 +22,19 @@ segment's pattern, as the reference's ``jax.checkpoint`` of its scan body
 does: ``"full"`` keeps only its input, ``"dots"`` also keeps the outputs of
 its matmuls without batch dimensions (``aten.mm``; the reference's
 ``checkpoint_dots_with_no_batch_dims``), ``"none"`` keeps everything.  The
-three give equal gradients.  ``unroll`` and ``gather_bf16`` change nothing
-here.
+three give equal gradients.  ``unroll`` changes nothing here.
 
 On a mesh (``launch.steps.place_model``) the parameters are DTensors laid
-out by ``param_axes`` through the sharding rules; each layer gathers its
-weights whole as it runs (``common.whole``, inside the remat region, so the
-backward pass gathers them again), and ``train_step_fn``'s batch is this
-data rank's rows.
+out by ``param_axes`` through the sharding rules, and ``train_step_fn``'s
+batch is this data rank's rows.  Each layer gathers its weights over the
+data axes as it runs, keeping their "model" split (``common.whole``,
+inside the remat region, so the backward pass gathers them again), and
+computes its share over the model ranks: attention by heads, the dense
+FFN and shared experts by mlp columns (column-parallel ``w_gate``/``w_up``,
+row-parallel ``w_down``, then one sum over "model"), the SSM by SSD heads,
+the MoE by experts; the embedding, the head and the loss by vocab rows.
+Under ``cfg.gather_bf16`` a layer's weights are gathered whole and its
+compute is replicated over "model", as the reference's flag asks.
 """
 from __future__ import annotations
 
@@ -53,12 +58,18 @@ from repro_torch.models.common import (
     ModelConfig,
     active_mesh,
     chunked_cross_entropy,
+    combine_model,
     data_size,
+    fan_out_model,
+    gather_model,
     gelu_mlp,
+    lookup,
     mean_data,
+    model_split,
     randn,
     rms_norm,
     swiglu,
+    take,
     whole,
 )
 
@@ -83,10 +94,9 @@ class Params(nn.Module):
         return k in self._parameters or k in self._modules
 
     def whole(self, keep: tuple[str, ...] = ()) -> dict:
-        """The tree as dicts of tensors, each DTensor gathered whole
-        (``common.whole``) but those named in ``keep``."""
-        out = {k: v if k in keep else whole(v)
-               for k, v in self._parameters.items()}
+        """The tree as dicts of tensors, each DTensor gathered over every
+        mesh dim but those named in ``keep`` (``common.whole``)."""
+        out = {k: whole(v, keep) for k, v in self._parameters.items()}
         out.update((k, m.whole(keep)) for k, m in self._modules.items())
         return out
 
@@ -178,14 +188,28 @@ def layer_axes(cfg: ModelConfig, spec: tuple[str, str]) -> dict:
     return ax
 
 
+def dense_ffn(cfg: ModelConfig, f, x: torch.Tensor) -> torch.Tensor:
+    """The dense FFN; where its mlp columns are split over "model", this
+    rank's column-parallel ``w_gate``/``w_up`` and row-parallel ``w_down``
+    give a partial output, summed over the model ranks."""
+    ff = model_split(cfg.d_ff, f["w_up"], 1)
+    x = fan_out_model(x, ff.mesh) if ff.on else x
+    up, down = take(ff, f["w_up"], 1), take(ff, f["w_down"], 0)
+    if cfg.act == "swiglu":
+        out = swiglu(x, take(ff, f["w_gate"], 1), up, down)
+    else:
+        out = gelu_mlp(x, up, down)
+    return combine_model(out, ff.mesh) if ff.on else out
+
+
 def apply_layer(cfg: ModelConfig, spec: tuple[str, str], p, x: torch.Tensor,
                 positions: torch.Tensor, cache: dict | None, cache_len):
     """Returns (x, new_cache_dict_or_None, aux_loss).  A layer on a mesh
-    gathers its weights whole first, but a MoE layer's expert weights,
-    which ``moe.moe_forward`` gathers as its dispatch needs."""
+    gathers its weights over the data axes first, keeping their "model"
+    split (whole under ``cfg.gather_bf16``)."""
     mixer, ffn = spec
     if isinstance(p, Params) and isinstance(p["norm1"], DTensor):
-        p = p.whole(moe_mod.EXPERT_WEIGHTS if ffn == "moe" else ())
+        p = p.whole(() if cfg.gather_bf16 else ("model",))
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     new_cache = None
     if mixer == "attn":
@@ -215,10 +239,8 @@ def apply_layer(cfg: ModelConfig, spec: tuple[str, str], p, x: torch.Tensor,
         f = p["ffn"]
         if ffn == "moe":
             out2, aux = moe_mod.moe_forward(cfg, f, h2)
-        elif cfg.act == "swiglu":
-            out2 = swiglu(h2, f["w_gate"], f["w_up"], f["w_down"])
         else:
-            out2 = gelu_mlp(h2, f["w_up"], f["w_down"])
+            out2 = dense_ffn(cfg, f, h2)
         x = x + out2.to(x.dtype)
     return x, new_cache, aux
 
@@ -382,7 +404,7 @@ class LanguageModel(nn.Module):
         """tokens (B, S) -> (h (B, S, d), aux, new caches or None)."""
         cfg = self.cfg
         B, S = tokens.shape
-        x = whole(self.embed)[tokens].to(cfg.compute_dtype)
+        x = self._embed(tokens).to(cfg.compute_dtype)
         if frontend is not None:
             F_ = frontend.shape[1]
             x = torch.cat([frontend.to(x.dtype), x[:, F_:]], dim=1)
@@ -431,13 +453,31 @@ class LanguageModel(nn.Module):
         h = rms_norm(x, whole(self.final_norm), cfg.norm_eps)
         return h, aux_total, new_caches
 
+    def _embed(self, tokens):
+        """The embedding rows of ``tokens``, vocab-parallel where the
+        embedding's vocab is split over "model" (``common.lookup``)."""
+        table = whole(self.embed, keep=("model",))
+        return lookup(table, tokens, model_split(self.cfg.vocab, table, 0))
+
+    def _head(self, dtype):
+        """(this rank's head columns in ``dtype``, their vocab split)."""
+        head = whole(self.head, keep=("model",))
+        return head.to(dtype), model_split(self.cfg.vocab, head, 1)
+
+    def _logits(self, h):
+        """The last position's logits (B, V), gathered over the model
+        ranks where the vocab is split."""
+        head, vs = self._head(h.dtype)
+        return gather_model(h[:, -1] @ head, 1, vs)
+
     # ---- losses / steps ----
     def loss(self, tokens, labels, frontend=None):
         """(total, {"ce", "aux"}): the training loss, differentiable."""
         cfg = self.cfg
         h, aux, _ = self.forward(tokens, frontend=frontend)
-        ce = chunked_cross_entropy(h, whole(self.head).to(cfg.compute_dtype),
-                                   labels, unroll=cfg.unroll)
+        head, vs = self._head(cfg.compute_dtype)
+        ce = chunked_cross_entropy(h, head, labels, unroll=cfg.unroll,
+                                   vocab=vs)
         total = ce + 0.01 * aux
         if cfg.mtp_depth:
             total = total + 0.3 * self._mtp_loss(h, tokens, labels)
@@ -450,7 +490,7 @@ class LanguageModel(nn.Module):
         cfg = self.cfg
         mtp = self.mtp
         B, S = tokens.shape
-        e_next = whole(self.embed)[tokens[:, 1:]].to(h.dtype)
+        e_next = self._embed(tokens[:, 1:]).to(h.dtype)
         hh = rms_norm(h[:, :-1], whole(mtp["norm_h"]), cfg.norm_eps)
         ee = rms_norm(e_next, whole(mtp["norm_e"]), cfg.norm_eps)
         z = torch.cat([hh, ee], dim=-1) @ whole(mtp["proj"]).to(h.dtype)
@@ -458,8 +498,9 @@ class LanguageModel(nn.Module):
                                  device=h.device)[None].expand(B, S - 1)
         z, _, _ = apply_layer(cfg, ("attn", "dense"), mtp["block"], z,
                               positions, None, 0)
-        return chunked_cross_entropy(z, whole(self.head).to(h.dtype),
-                                     labels[:, 1:], unroll=cfg.unroll)
+        head, vs = self._head(h.dtype)
+        return chunked_cross_entropy(z, head, labels[:, 1:],
+                                     unroll=cfg.unroll, vocab=vs)
 
     @torch.no_grad()
     def prefill(self, tokens, caches, frontend=None):
@@ -467,8 +508,7 @@ class LanguageModel(nn.Module):
         caches holding S positions)."""
         h, _, new_caches = self.forward(tokens, frontend=frontend,
                                         caches=caches, cache_len=0)
-        logits = h[:, -1] @ whole(self.head).to(h.dtype)
-        return logits, new_caches
+        return self._logits(h), new_caches
 
     @torch.no_grad()
     def decode_step(self, token, caches, cache_len):
@@ -476,8 +516,7 @@ class LanguageModel(nn.Module):
         caches)."""
         h, _, new_caches = self.forward(token, caches=caches,
                                         cache_len=cache_len)
-        logits = h[:, -1] @ whole(self.head).to(h.dtype)
-        return logits, new_caches
+        return self._logits(h), new_caches
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> LanguageModel:

@@ -10,17 +10,27 @@ batched einsum, and results are combined back with the router gates.
 Two dispatches, by ``cfg.moe_impl``:
 
   * ``"global"`` pools capacity, and the load-balancing aux loss, over the
-    whole batch, as the reference's GSPMD program does on any mesh: on a
-    batch split over the data axes it all-gathers the tokens in rank order,
-    dispatches them all, and keeps its own rows of the output;
+    whole batch, as the reference's program does on any mesh.  On a mesh
+    the dispatch buffer is laid out as the reference constrains it
+    (``moe.py:105,112``): experts over "model", capacity rows over the
+    data axes.  Each rank routes its own rows, learns from the other data
+    ranks' per-expert counts where its assignments fall in the global
+    order, and fills the slots of its model rank's experts; one
+    reduce-scatter over the data axes gives each rank its capacity rows
+    (``scatter_data``), it runs its experts' products on them, one
+    all-gather brings the outputs back (``gather_data``), each rank
+    combines its tokens' outputs of its experts, and one sum over "model"
+    joins the experts;
   * ``"local"`` (``moe_forward_local``, under an active mesh with a
     ``"model"`` axis): each model rank routes its data shard whole, keeps
     only the tokens of its ``E // n_mp`` experts at the per-shard capacity,
     and one sum over ``"model"`` combines the outputs.
 
-Expert weights (``EXPERT_WEIGHTS``) may arrive as DTensors laid out by
-``moe_axes`` (experts over ``"model"``, d_model over the data axes): each
-path gathers them as it needs (``common.whole``).
+The router stays whole (computed on every model rank); the shared experts
+(deepseek) are column- and row-parallel over "model" as the dense FFN.
+Expert weights arrive gathered over the data axes with their "model" split
+kept (``apply_layer``), or as DTensors laid out by ``moe_axes``, which each
+path gathers as it needs (``common.whole``).
 """
 from __future__ import annotations
 
@@ -39,9 +49,13 @@ from repro_torch.models.common import (
     dot,
     einsum,
     fan_out_model,
+    gather_data,
     gather_rows,
     mean_data,
+    model_split,
     randn,
+    scatter_data,
+    take,
     whole,
 )
 
@@ -104,34 +118,56 @@ def _route(cfg: ModelConfig, p, xt: torch.Tensor):
     return probs, gate, eidx
 
 
+def _shared(cfg: ModelConfig, p, xt: torch.Tensor) -> torch.Tensor:
+    """The shared experts on tokens ``xt`` (N, d): where their mlp columns
+    are split over "model", this rank's columns and rows, summed over the
+    model ranks."""
+    eff = cfg.moe_d_ff or cfg.d_ff
+    sh = model_split(cfg.moe_shared_experts * eff, p["shared_up"], 1)
+    x = fan_out_model(xt, sh.mesh) if sh.on else xt
+    sg = dot(x, take(sh, p["shared_gate"], 1))
+    su = dot(x, take(sh, p["shared_up"], 1))
+    out = dot(F.silu(sg) * su, take(sh, p["shared_down"], 0))
+    return combine_model(out, sh.mesh) if sh.on else out
+
+
 def _moe_forward_global(cfg: ModelConfig, p, x: torch.Tensor):
     """x: (B, S, d) -> (out, aux_loss).  Under an active mesh with data
-    axes, ``x`` is this data rank's rows of the batch: the dispatch runs on
-    the whole batch (the tokens all-gathered in rank order), so capacity
-    and aux are pooled over it as in the reference, and each rank keeps its
-    own rows."""
+    axes, ``x`` is this data rank's rows of the batch; capacity and aux are
+    pooled over the whole batch as in the reference (the module's
+    docstring has the layout)."""
     mesh = active_mesh()
     n_dp = data_size(mesh)
     B_loc, S, d = x.shape
-    E, k = p["w_gate"].shape[0], cfg.moe_top_k
+    E, k = p["router"].shape[1], cfg.moe_top_k
     dev = x.device
     xt = x.reshape(B_loc * S, d)
-    if n_dp > 1:
-        xt = gather_rows(xt, mesh)
-    N = xt.shape[0]
-    w_gate, w_up, w_down = (whole(p[n]) for n in EXPERT_WEIGHTS)
+    N_loc = xt.shape[0]
+    N = N_loc * n_dp
+    w_gate, w_up, w_down = (whole(p[n], keep=("model",))
+                            for n in EXPERT_WEIGHTS)
+    ex = model_split(E, w_gate, 0)
     probs, gate, eidx = _route(cfg, p, xt)
 
-    # load-balancing aux loss (Switch-style)
-    me = probs.mean(dim=0)                                     # (E,)
-    ce = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
+    # load-balancing aux loss (Switch-style) over the whole batch: the
+    # router's probabilities gathered in rank order (so its mean is one
+    # process's), the experts' counts summed
+    me = (gather_rows(probs, mesh) if n_dp > 1 else probs).mean(dim=0)
+    counts = torch.zeros(E, dtype=torch.float32, device=dev).index_add_(
         0, eidx.reshape(-1),
-        torch.ones(N * k, dtype=torch.float32, device=dev)) / (N * k)
+        torch.ones(N_loc * k, dtype=torch.float32, device=dev))
+    if n_dp > 1:
+        every = gather_rows(counts[None], mesh)                # (n_dp, E)
+        counts = every.sum(0)
+        before = every[:data_rank(mesh)].sum(0).long()  # earlier ranks'
+    ce = counts / (N * k)
     aux = E * torch.sum(me * ce)
 
     # --- sort-based dispatch -------------------------------------------------
-    NK = N * k
-    cap = int(math.ceil(NK / E * cfg.capacity_factor))
+    NK = N_loc * k
+    cap = int(math.ceil(N * k / E * cfg.capacity_factor))
+    # the capacity rows split over the data ranks (padded to divide)
+    cap_pad = -(-cap // n_dp) * n_dp
     flat_e = eidx.reshape(NK)
     flat_g = gate.reshape(NK)
     ar = torch.arange(NK, device=dev)
@@ -140,38 +176,43 @@ def _moe_forward_global(cfg: ModelConfig, p, x: torch.Tensor):
     order = torch.argsort(flat_e, stable=True)                 # (NK,)
     e_sorted = flat_e[order]
     # rank within expert: position - start offset of that expert's segment
+    # (and the earlier data ranks' assignments to it, in the global order)
     start = torch.searchsorted(e_sorted, torch.arange(E, device=dev),
                                side="left")                    # (E,)
     rank = ar - start[e_sorted]
+    if n_dp > 1:
+        rank = rank + before[e_sorted]
     keep = rank < cap
-    slot = torch.where(keep, e_sorted * cap + rank, E * cap)   # overflow slot
+    if ex.on:  # this model rank's experts only
+        keep = keep & (e_sorted >= ex.lo) & (e_sorted < ex.lo + ex.cnt)
+    n_slots = ex.cnt * cap_pad
+    slot = torch.where(keep, (e_sorted - ex.lo) * cap_pad + rank, n_slots)
 
-    buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=dev)
-    buf[slot] = xt[tok_of[order]]
-    buf = buf[:-1].reshape(E, cap, d)
+    x_disp = fan_out_model(xt, mesh) if ex.on else xt
+    buf = torch.zeros((n_slots + 1, d), dtype=x.dtype, device=dev)
+    buf[slot] = x_disp[tok_of[order]]
+    buf = scatter_data(buf[:-1].reshape(ex.cnt, cap_pad, d), 1, mesh)
 
-    # --- expert FFN (batched over E) -----------------------------------------
+    # --- expert FFN (batched over this rank's experts and capacity rows) -----
     g = einsum("ecd,edf->ecf", buf, w_gate)
     u = einsum("ecd,edf->ecf", buf, w_up)
     h = F.silu(g) * u
     out_e = einsum("ecf,efd->ecd", h, w_down)                  # (E, cap, d)
 
     # --- combine --------------------------------------------------------------
-    out_flat = out_e.reshape(E * cap, d)
+    out_flat = gather_data(out_e, 1, mesh).reshape(n_slots, d)
     gathered = torch.where(keep[:, None],
-                           out_flat[torch.clamp(slot, 0, E * cap - 1)], 0.0)
+                           out_flat[torch.clamp(slot, 0, n_slots - 1)], 0.0)
+    if ex.on:
+        flat_g = fan_out_model(flat_g, mesh)
     contrib = gathered * flat_g[order][:, None].to(x.dtype)
-    out = torch.zeros((N, d), dtype=x.dtype, device=dev).index_add_(
+    out = torch.zeros((N_loc, d), dtype=x.dtype, device=dev).index_add_(
         0, tok_of[order], contrib.to(x.dtype))
+    if ex.on:
+        out = combine_model(out, mesh)
 
     if "shared_gate" in p:
-        sg = dot(xt, p["shared_gate"])
-        su = dot(xt, p["shared_up"])
-        out = out + dot(F.silu(sg) * su, p["shared_down"])
-
-    if n_dp > 1:
-        r = data_rank(mesh)
-        out = out[r * B_loc * S:(r + 1) * B_loc * S]
+        out = out + _shared(cfg, p, xt)
     return out.reshape(B_loc, S, d), aux
 
 
@@ -198,11 +239,12 @@ def moe_forward_local(cfg: ModelConfig, p, x: torch.Tensor, mesh):
     ranks (the reference returns it from ``shard_map`` replicated while it
     differs between data shards).
 
-    Expert weights: DTensors laid out by ``moe_axes``, or whole tensors
+    Expert weights: DTensors laid out by ``moe_axes``, this rank's experts
+    (``apply_layer`` gathers them over the data axes), or whole tensors
     every rank holds (narrowed to this rank's experts).
     """
     B, S, d = x.shape
-    E, k = p["w_gate"].shape[0], cfg.moe_top_k
+    E, k = p["router"].shape[1], cfg.moe_top_k
     n_mp = mesh.size(list(mesh.mesh_dim_names).index("model"))
     if E % n_mp:
         raise ValueError(f"{E} experts do not divide over {n_mp} model ranks")
@@ -216,7 +258,7 @@ def moe_forward_local(cfg: ModelConfig, p, x: torch.Tensor, mesh):
     def local_experts(w):
         if isinstance(w, DTensor):
             return whole(w, keep=("model",))
-        return w.narrow(0, e_lo, E_loc)
+        return w.narrow(0, e_lo, E_loc) if w.shape[0] == E else w
 
     w_gate, w_up, w_down = (local_experts(p[n]) for n in EXPERT_WEIGHTS)
 
@@ -260,7 +302,5 @@ def moe_forward_local(cfg: ModelConfig, p, x: torch.Tensor, mesh):
     out = combine_model(out, mesh).reshape(B, S, d)
 
     if "shared_gate" in p:
-        sg = dot(x_loc, p["shared_gate"])
-        su = dot(x_loc, p["shared_up"])
-        out = out + dot(F.silu(sg) * su, p["shared_down"]).reshape(B, S, d)
+        out = out + _shared(cfg, p, x_loc).reshape(B, S, d)
     return out, aux

@@ -7,8 +7,9 @@ at (1, 1), and the count pinned.  ``dryrun.run_cell`` runs one smoke cell end
 to end over a fake group of 8 in a process of its own; ``--list`` gives
 the reference's ok/SKIP column; importing the dry-run modules sets no
 environment variable and makes no process group; the MoE's global path on
-a batch split over 16 data ranks (a fake group of 256) gathers the whole
-batch and dispatches it at the reference's capacity."""
+a batch split over 16 data ranks (a fake group of 256) dispatches the
+whole batch at the reference's capacity by one reduce-scatter and one
+all-gather of the capacity rows over the data ranks."""
 import json
 import math
 import os
@@ -244,10 +245,14 @@ def test_global_moe_on_a_split_batch_gathers_the_whole_batch():
     """The deepseek smoke config's train step (its first two layers: one
     dense, one MoE; and the MTP block) on a (16, 16) mesh over a
     fake group of 256, 32 x 64 tokens: each of the 16 data ranks holds 2
-    rows, every MoE layer all-gathers the 2,048 tokens over the data
-    ranks, and dispatches them into the reference's capacity, ceil(N k /
-    E * capacity_factor) for N = 2,048 (the reference's global path on the
-    whole batch)."""
+    rows.  The MoE layer dispatches the whole batch at the reference's
+    capacity, ceil(N k / E * capacity_factor) for N = 2,048 (its global
+    path on the whole batch), without gathering the batch: each rank fills
+    the dispatch buffer's slots of its own tokens, one reduce-scatter over
+    the data ranks gives each its block of the capacity rows (the
+    reference's ``exp_cap`` split), it runs the experts on them (4 experts
+    do not divide over 16 model ranks, so each runs all 4, as the rules
+    leave them whole), and one all-gather brings the outputs back."""
     import repro.models.common as rcommon
     from repro.configs import get_smoke_config as ref_smoke
     from repro_torch.configs.registry import ShapeSpec
@@ -255,9 +260,10 @@ def test_global_moe_on_a_split_batch_gathers_the_whole_batch():
     from repro_torch.launch.mesh import make_host_mesh
 
     cfg = ref_smoke("deepseek-v3-671b")
-    n_tokens, d = 32 * 64, cfg.d_model
+    n_tokens, d, E = 32 * 64, cfg.d_model, cfg.moe_experts
     cap = int(math.ceil(n_tokens * cfg.moe_top_k / cfg.moe_experts
                         * cfg.capacity_factor))
+    block = -(-cap // 16)
     dist.init_process_group("fake", store=FakeStore(), rank=0,
                             world_size=256)
     try:
@@ -274,16 +280,24 @@ def test_global_moe_on_a_split_batch_gathers_the_whole_batch():
     finally:
         dist.destroy_process_group()
         rcommon.set_mesh_rules({})
-    moe = [r for r in trace.ops if "models/moe.py" in r.where]
-    gathers = [r for r in moe if r.coll == "all-gather"
-               and r.group == 16 and r.outputs[0][0] == (n_tokens, d)]
     n_moe = 2 - cfg.first_dense_layers
-    assert len(gathers) >= n_moe
+    assert not [r for r in trace.ops if r.coll == "all-gather"
+                and r.outputs[0][0] == (n_tokens, d)]
+    moe = [r for r in trace.ops if "models/moe.py" in r.where]
     buffers = {r.outputs[0][0] for r in moe if r.op == "aten.zeros.default"}
-    assert (cfg.moe_experts * cap + 1, d) in buffers
-    # the embedding looks up this data rank's 2 rows
+    assert (E * 16 * block + 1, d) in buffers
+    # the exchange (capacity rows leading): this rank's block, summed over
+    # the 16 data ranks, and the outputs of every block gathered back
+    scatters = [r for r in trace.ops if r.coll == "reduce-scatter"
+                and r.group == 16 and r.outputs[0][0] == (block, E, d)]
+    gathers = [r for r in trace.ops if r.coll == "all-gather"
+               and r.group == 16 and r.outputs[0][0] == (16 * block, E, d)]
+    assert len(scatters) >= n_moe and len(gathers) >= n_moe
+    assert any(r.op == "aten.bmm.default" and r.inputs[0][0] == (E, block, d)
+               for r in moe)
+    # the embedding looks up this data rank's 2 rows of its vocab rows
     assert any(r.op == "aten.index.Tensor" and r.outputs[0][0] == (2, 64, d)
-               for r in trace.ops if "models/model.py" in r.where)
+               for r in trace.ops if "models/" in r.where)
 
 
 def test_decode_cache_write_at_a_tensor_length_equals_an_int_one():

@@ -16,9 +16,26 @@ then assert on them:
   * the global path in the dropping regime (capacity 1.0) on a batch split
     over the data axes equals the one-process result;
   * ``train`` at (2, 2) against (1, 1) (one process, no group) for the
-    smoke llama and dbrx with the global dispatch: losses within 1e-5
-    relative over 5 steps; dbrx with the local dispatch at (1, 4) within
-    1e-5 too; parameters and moments carry the plan's placements;
+    smoke llama and dbrx with the global dispatch, and at (1, 4) for both:
+    losses within 1e-5 relative over 5 steps; dbrx with the local dispatch
+    at (1, 4) within 1e-5 too; parameters and moments carry the plan's
+    placements;
+  * tensor-parallel compute over "model" against one process, one loss
+    and its backward pass on the same batch: the smoke llama at (1, 4)
+    and (2, 2), dbrx (global dispatch) at (1, 4), mamba2 at (1, 4) (the
+    gated norm's sum over the model ranks), deepseek at (2, 2) (MLA, the
+    vocab-parallel loss, MTP): loss, cross entropy and the final hidden
+    state within 1e-5 relative, each gradient leaf within 1e-5 of its
+    largest magnitude, and the forward pass's sums over "model" at least
+    two a layer; llama with 6 heads over 4 model ranks (2, 2, 2, 0 heads:
+    their columns gathered, since the even storage split cuts heads); llama
+    under ``gather_bf16`` at (1, 4) takes the
+    replicated path: its hidden state equals one process's bit for bit,
+    with the embedding's one sum over "model" and none in its layers;
+  * prefill then two decode steps at (1, 4) under ``decode_32k``'s rule
+    (the caches' positions split over "model") through the cells'
+    steps, for the smoke llama, deepseek and mamba2, against one process:
+    logits within 1e-5 of their largest;
   * dbrx with the local dispatch at (2, 2), nothing dropped, against one
     process: the first step's cross entropy within 1e-5;
   * AdamW with the int8 second moment on a (2, 2) mesh against one
@@ -52,6 +69,21 @@ WORLD = 4
 TIMEOUT = 120.0
 B, S, STEPS = 4, 32, 5
 MOE_TOL = 1e-5
+#: tensor-parallel cases: (arch, mesh shape, config fields); 6 heads
+#: over 4 model ranks split as GSPMD pads them (2, 2, 2, 0), their wq
+#: columns cut mid-head by the even storage split
+TP_CASES = (("llama3.2-1b", (1, 4), {}), ("llama3.2-1b", (2, 2), {}),
+            ("dbrx-132b", (1, 4), {}), ("mamba2-1.3b", (1, 4), {}),
+            ("deepseek-v3-671b", (2, 2), {}),
+            ("llama3.2-1b", (1, 4), {"n_heads": 6, "n_kv_heads": 2}),
+            ("llama3.2-1b", (1, 4), {"gather_bf16": True}))
+
+
+def _tp_name(arch, shape, kw) -> str:
+    return " ".join([arch, str(shape)] + [f"{k}={v}" for k, v in kw.items()])
+
+SERVE_ARCHS = ("llama3.2-1b", "deepseek-v3-671b", "mamba2-1.3b")
+TP_TOL = 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -348,6 +380,117 @@ def _on(mesh, plan):
     return (mesh, plan)
 
 
+def _tp_case(arch, shape, **cfg_kw) -> dict:
+    """One loss of the smoke ``arch`` (fp32) and its backward pass on a
+    ``shape`` mesh against one process, on the same batch: the relative
+    errors of loss, cross entropy and final hidden state, the worst
+    gradient leaf's error relative to its largest magnitude, and the
+    forward pass's sums over "model"."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import place_model
+    from repro_torch.models import common, init_params, set_active_mesh
+    from repro_torch.models.common import data_rank, data_size, mean_data
+
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              param_dtype=torch.float32,
+                              compute_dtype=torch.float32, **cfg_kw)
+    rng = np.random.default_rng(3)
+    tok, lab = (torch.from_numpy(rng.integers(0, cfg.vocab, (B, S)))
+                for _ in range(2))
+    set_active_mesh(None)
+    one = init_params(cfg, 0, device="cpu")
+    one.requires_grad_(True)
+    loss1, met1 = one.loss(tok, lab)
+    loss1.backward()
+    with torch.no_grad():
+        h1 = one.forward(tok)[0]
+    mesh = make_host_mesh(shape, device="cpu")
+    model = init_params(cfg, 0, device="cpu")
+    place_model(model, mesh)
+    n, r = data_size(mesh), data_rank(mesh)
+    rows = slice(r * B // n, (r + 1) * B // n)
+    sums, plain = [], common._sum_over
+
+    def counted(x, mesh, axes, *a):
+        sums.append(tuple(axes))
+        return plain(x, mesh, axes, *a)
+
+    set_active_mesh(mesh)
+    try:
+        model.requires_grad_(True)
+        loss, met = model.loss(tok[rows], lab[rows])
+        (loss / n).backward()
+        common._sum_over = counted
+        with torch.no_grad():
+            h = model.forward(tok[rows])[0]
+        loss, ce = (float(mean_data(v.detach(), mesh))
+                    for v in (loss, met["ce"]))
+    finally:
+        common._sum_over = plain
+        set_active_mesh(None)
+    grad = {name: _rel(p.grad.full_tensor(), q.grad) for (name, p), q in
+            zip(model.named_parameters(), one.parameters())}
+    return {"loss": abs(loss - float(loss1)) / abs(float(loss1)),
+            "ce": abs(ce - float(met1["ce"])) / abs(float(met1["ce"])),
+            "h": _rel(h, h1[rows]), "h_equal": torch.equal(h, h1[rows]),
+            "grad": max(grad.values()), "worst": max(grad, key=grad.get),
+            "model_sums": sums.count(("model",)), "n_layers": cfg.n_layers}
+
+
+def _serve_case(arch, shape, T: int = 64, batch: int = 4) -> dict:
+    """Prefill of T tokens, then decode steps at lengths T / 2 + 3 and
+    T - 1, through the prefill and decode cells' steps under
+    ``decode_32k``'s rules (positions over "model"), on a ``shape`` mesh
+    and in one process: each step's logits' error relative to their
+    largest."""
+    import repro_torch.configs.registry as preg
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import set_active_mesh, set_mesh_rules
+    from repro_torch.models.common import data_rank, data_size
+
+    shapes = dict(preg.SHAPES)
+    for k in ("prefill_32k", "decode_32k"):
+        shapes[k] = preg.ShapeSpec(k, T, batch, preg.SHAPES[k].kind)
+    saved = steps.SHAPES
+    steps.SHAPES = shapes
+    rules = steps.SHAPE_RULES["decode_32k"]
+    over = {"param_dtype": torch.float32, "compute_dtype": torch.float32}
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, 512, (batch, T + 2)).astype(
+        np.int32))
+    got = {}
+    try:
+        for name, m in (("one", None),
+                        ("mesh", make_host_mesh(shape, device="cpu"))):
+            pre = steps.build_cell(arch, "prefill_32k", m, smoke=True,
+                                   rules=rules, overrides=over)
+            model, b, caches = pre.make_args("cpu",
+                                             batch={"tokens": toks[:, :T]})
+            logits, caches = pre.step(model, b, caches)
+            dec = steps.build_cell(arch, "decode_32k", m, smoke=True,
+                                   rules=rules, overrides=over)
+            got[name] = [logits]
+            for i, clen in enumerate((T // 2 + 3, T - 1)):
+                tok = steps.layout(m, {"tokens": toks[:, T + i:T + i + 1]},
+                                   dec.in_shardings[0])
+                cl = steps.layout(m, torch.tensor(clen, dtype=torch.int32),
+                                  dec.in_shardings[2])
+                logits, caches = dec.step(model, tok, caches, cl)
+                got[name].append(logits)
+            set_active_mesh(None)
+            set_mesh_rules({})
+    finally:
+        steps.SHAPES = saved
+    n, r = data_size(m), data_rank(m)
+    rows = slice(r * batch // n, (r + 1) * batch // n)
+    return {"logits": [_rel(a, b[rows])
+                       for a, b in zip(got["mesh"], got["one"])]}
+
+
 def _rank_main(rank: int, out: Path) -> None:
     import torch.distributed as dist
 
@@ -369,10 +512,16 @@ def _rank_main(rank: int, out: Path) -> None:
                                     _moe_cfg(capacity_factor=1.0))
         res["train"] = {
             "llama": _train_case("llama3.2-1b", (2, 2)),
+            "llama-1x4": _train_case("llama3.2-1b", (1, 4)),
             "dbrx-global": _train_case("dbrx-132b", (2, 2)),
+            "dbrx-global-1x4": _train_case("dbrx-132b", (1, 4)),
             "dbrx-local-1x4": _train_case("dbrx-132b", (1, 4),
                                           moe_impl="local"),
         }
+        res["tp"] = {_tp_name(*case): _tp_case(case[0], case[1], **case[2])
+                     for case in TP_CASES}
+        res["serve"] = {arch: _serve_case(arch, (1, 4))
+                        for arch in SERVE_ARCHS}
         res["local_2x2"] = _local_2x2_case()
         res["quantize_v"] = _quantize_v_case()
         res["elastic"] = _elastic_case(out)
@@ -484,13 +633,34 @@ def test_global_moe_on_a_split_batch_equals_one_process(ranks):
 
 
 @pytest.mark.parametrize("case,ref", [("llama", "llama"),
+                                      ("llama-1x4", "llama"),
                                       ("dbrx-global", "dbrx"),
+                                      ("dbrx-global-1x4", "dbrx"),
                                       ("dbrx-local-1x4", "dbrx")])
 def test_training_on_a_mesh_matches_one_device(ranks, single, case, ref):
     r = ranks["train"][case]
     assert not r["placements_bad"], r["placements_bad"][:5]
     assert _max_rel(r["losses"], single[ref]) <= 1e-5, (r["losses"],
                                                         single[ref])
+
+
+@pytest.mark.parametrize("case", [_tp_name(*c) for c in TP_CASES])
+def test_tensor_parallel_step_matches_one_process(ranks, case):
+    r = ranks["tp"][case]
+    assert max(r["loss"], r["ce"], r["h"]) <= TP_TOL, r
+    assert r["grad"] <= TP_TOL, r
+    if case.endswith("gather_bf16=True"):  # the replicated path: only the
+        # embedding sums over "model"
+        assert r["h_equal"] and r["model_sums"] == 1, r
+    else:  # each layer's split compute ends in sums over "model"
+        assert r["model_sums"] >= 2 * r["n_layers"] + 1, r
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_decode_over_a_position_split_cache_matches_one_process(ranks,
+                                                                arch):
+    r = ranks["serve"][arch]
+    assert len(r["logits"]) == 3 and max(r["logits"]) <= TP_TOL, r
 
 
 def test_local_moe_training_with_split_data_first_step(ranks):
