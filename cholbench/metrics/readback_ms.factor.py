@@ -1,0 +1,7 @@
+"""readback_ms.factor: host ms of the port's ``factor.read_back`` range per
+traced factorization."""
+from cholbench import readers
+
+
+def read(ctx):
+    return readers.range_ms(ctx, "factor", "factor.read_back")

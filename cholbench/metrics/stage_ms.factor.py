@@ -1,0 +1,7 @@
+"""stage_ms.factor: host ms of the port's ``factor.stage`` range per
+traced factorization."""
+from cholbench import readers
+
+
+def read(ctx):
+    return readers.range_ms(ctx, "factor", "factor.stage")
