@@ -17,9 +17,11 @@ factorization and its first solve, which reads
   ``solve.levels``): each range's host wall time, and the device time of
   the kernels and copies it issued.  The ranges do not synchronise the
   device, so ``factor.read_back`` also waits for the levels' device work;
-* device time by kernel and copy name, and the device's busy share of the
-  wall time (the sum of those device times over the wall time; the tracer
-  adds its own host overhead to the wall time).
+* device time by kernel and copy name.
+
+The device's idle share, and the finer spans inside these ranges, are read
+by the benchmark's traced run: ``python3 cholbench/run.py --workload
+<cell> --seed <n> --seconds <s> --trace 1``.
 
 ``--guard raise`` (or ``perturb``) adds a trace of one factorization with
 that guard (the guarded kernel) beside the unguarded one.  ``--many M``
@@ -108,10 +110,7 @@ def profiled(A, sym, Aperm, run=None, phases=PHASES) -> dict:
     if missing:
         raise AssertionError(f"profiler trace lacks the ranges {missing}")
     rows.sort(key=lambda r: -r[1])
-    busy = sum(r[1] for r in rows) / 1e3
     return {"wall_s": wall, "phases": {k: found[k] for k in phases},
-            "device_busy_s": busy,
-            "device_busy_share": busy / wall if wall else 0.0,
             "top": [{"name": k[:80], "ms": ms, "count": c}
                     for k, ms, c in rows[:15]]}
 

@@ -32,7 +32,6 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core.engines import DeviceEngine
 from repro_torch.core.guard import (
@@ -55,6 +54,7 @@ from repro_torch.core.numeric import (
     factorize_rlb,
 )
 from repro_torch.core.refine import refine_partition
+from repro_torch.core.spans import span
 from repro_torch.core.symbolic import SymbolicFactor, symbolic_analyze
 from repro_torch.sparse.ordering import fill_reducing_ordering
 
@@ -192,7 +192,8 @@ def cholesky(
                        and (assembly == "device" or policy.threshold == 0))
     gval, gkw = None, {}
     if guard != "off":
-        gval = validate_matrix(A)  # raises BadMatrixError on NaN/Inf/asym
+        with span("guard.validate"):
+            gval = validate_matrix(A)  # BadMatrixError on NaN/Inf/asym
         if guard == "shift":
             # retry loop over guard='raise' with growing diagonal shifts
             return _cholesky_shift(
@@ -219,7 +220,7 @@ def cholesky(
     if plan is not None and device_resident:
         # plan fast path: the panel fill as ONE vectorized gather, no
         # permuted matrix is ever built
-        with record_function("factor.fill"):
+        with span("factor.fill"):
             store = PanelStore(sym, storage=plan.fill_storage(A))
         F = _factorize_levels_device(
             sym, None, device_engine, max_batch=max_batch, staging=staging,
@@ -271,24 +272,25 @@ def _attach_guard(F: CholeskyFactor, A, guard: str, val) -> CholeskyFactor:
     d^2 from the panels; like the reference's, that minimum skips a NaN
     pivot (``min(m, nan)`` keeps m), so such a factor can hold NaN under an
     ``ok`` report (ROADMAP section 3)."""
-    rep = F.guard_report
-    if rep is None:
-        rep = GuardReport(guard=guard, n_supernodes=int(F.sym.nsuper))
-        m = float("inf")
-        for s in range(F.sym.nsuper):
-            w = F.sym.width(s)
-            d = np.diagonal(F.panels[s][:w, :w])
-            if w:
-                m = min(m, float(np.min(d * d)))
-        rep.min_pivot = m
-        F.guard_report = rep
-    rep.guard = guard
-    rep.validation = val
-    if not rep.ok:
-        raise BreakdownError(rep)
-    if rep.needs_refine:
-        F.guard_A = sp.csc_matrix(A)
-    return F
+    with span("guard.report"):
+        rep = F.guard_report
+        if rep is None:
+            rep = GuardReport(guard=guard, n_supernodes=int(F.sym.nsuper))
+            m = float("inf")
+            for s in range(F.sym.nsuper):
+                w = F.sym.width(s)
+                d = np.diagonal(F.panels[s][:w, :w])
+                if w:
+                    m = min(m, float(np.min(d * d)))
+            rep.min_pivot = m
+            F.guard_report = rep
+        rep.guard = guard
+        rep.validation = val
+        if not rep.ok:
+            raise BreakdownError(rep)
+        if rep.needs_refine:
+            F.guard_A = sp.csc_matrix(A)
+        return F
 
 
 def _cholesky_shift(A, val, kw):
@@ -382,7 +384,8 @@ def cholesky_many(
         )
     gvals, gkw = None, {}
     if guard != "off":
-        gvals = [validate_matrix(Ai) for Ai in As]
+        with span("guard.validate"):
+            gvals = [validate_matrix(Ai) for Ai in As]
         if guard == "raise":
             gkw = dict(guard="raise")
         else:
@@ -408,7 +411,7 @@ def cholesky_many(
         device_engine = DeviceEngine(device=device)
     M = len(As)
     cells = int(scatter_plan(plan.sym).storage_cells)
-    with record_function("factor.fill"):
+    with span("factor.fill"):
         storage = np.zeros((M, cells), dtype=np.float64)
         for i, A in enumerate(As):
             plan.fill_storage(A, row=storage[i])
@@ -417,16 +420,17 @@ def cholesky_many(
         staging=staging, **gkw,
     )
     if guard != "off":
-        for rep, v in zip(BF.guard_reports, gvals):
-            rep.validation = v
-        bad = [r for r in BF.guard_reports if not r.ok]
-        if bad:
-            raise BreakdownError(bad[0])
-        if guard == "perturb":
-            BF.guard_As = [
-                sp.csc_matrix(Ai) if rep.needs_refine else None
-                for Ai, rep in zip(As, BF.guard_reports)
-            ]
+        with span("guard.report"):
+            for rep, v in zip(BF.guard_reports, gvals):
+                rep.validation = v
+            bad = [r for r in BF.guard_reports if not r.ok]
+            if bad:
+                raise BreakdownError(bad[0])
+            if guard == "perturb":
+                BF.guard_As = [
+                    sp.csc_matrix(Ai) if rep.needs_refine else None
+                    for Ai, rep in zip(As, BF.guard_reports)
+                ]
     return BF
 
 

@@ -56,12 +56,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from repro_torch.core import counters
 from repro_torch.core.buckets import _bucket_batch
 from repro_torch.core.relind import scatter_plan
 from repro_torch.core.schedule import LevelSchedule
+from repro_torch.core.spans import span
 from repro_torch.core.symbolic import SymbolicFactor
 
 
@@ -359,35 +359,37 @@ class DevicePanelStore:
                 "path gathers from the full staged storage)"
             )
         self.staging = staging
-        kinds = (_SOLVE_KINDS if factored
-                 else _KINDS if self.fused else _ORACLE_KINDS)
-        parts = [getattr(g, k).ravel()
-                 for lvl in gp.groups for g in lvl for k in kinds]
-        flat = np.concatenate(parts) if parts else np.zeros(0, dtype=np.int32)
-        dflat = eng.put(flat).long()
-        empty = dflat[0:0]
-        self.groups: list = []
-        pos = 0
-        for lvl in gp.groups:
-            row = []
-            for g in lvl:
-                devs = {}
-                for k in kinds:
-                    a = getattr(g, k)
-                    devs[k] = dflat[pos:pos + a.size].reshape(a.shape)
-                    pos += a.size
-                row.append(_DevGroup(
-                    cells=devs.get("cells", empty),
-                    src=devs.get("src", empty), lo=devs.get("lo", empty),
-                    hi=devs.get("hi", empty), gidx=devs["gidx"],
-                    ppack=devs.get("ppack", empty),
-                    upack=devs.get("upack", empty),
-                    rows=devs.get("rows_arr", empty).to(torch.int32),
-                    ws=devs.get("ws_arr", empty).to(torch.int32),
-                    cols=devs["cols"], tails=devs["tails"],
-                    off=g.off, base=g.base, lb=g.lb,
-                ))
-            self.groups.append(row)
+        with span("stage.index"):
+            kinds = (_SOLVE_KINDS if factored
+                     else _KINDS if self.fused else _ORACLE_KINDS)
+            parts = [getattr(g, k).ravel()
+                     for lvl in gp.groups for g in lvl for k in kinds]
+            flat = (np.concatenate(parts) if parts
+                    else np.zeros(0, dtype=np.int32))
+            dflat = eng.put_index(flat).long()
+            empty = dflat[0:0]
+            self.groups: list = []
+            pos = 0
+            for lvl in gp.groups:
+                row = []
+                for g in lvl:
+                    devs = {}
+                    for k in kinds:
+                        a = getattr(g, k)
+                        devs[k] = dflat[pos:pos + a.size].reshape(a.shape)
+                        pos += a.size
+                    row.append(_DevGroup(
+                        cells=devs.get("cells", empty),
+                        src=devs.get("src", empty), lo=devs.get("lo", empty),
+                        hi=devs.get("hi", empty), gidx=devs["gidx"],
+                        ppack=devs.get("ppack", empty),
+                        upack=devs.get("upack", empty),
+                        rows=devs.get("rows_arr", empty).to(torch.int32),
+                        ws=devs.get("ws_arr", empty).to(torch.int32),
+                        cols=devs["cols"], tails=devs["tails"],
+                        off=g.off, base=g.base, lb=g.lb,
+                    ))
+                self.groups.append(row)
         self.factor_ext = None
         self._packed: list = []
         self._solve_ready = False
@@ -413,7 +415,8 @@ class DevicePanelStore:
         lb = gp.level_base
         nlev = len(gp.groups)
         if staging == "sync":
-            whole = eng.put(host_storage[..., gp.cells_concat])
+            with span("stage.chunk"):
+                whole = eng.put(host_storage[..., gp.cells_concat])
             self._chunks = [whole[..., lb[l]:lb[l + 1]] for l in range(nlev)]
         else:
             # the level's host-side gather runs at prefetch time, while
@@ -430,8 +433,9 @@ class DevicePanelStore:
             return
         gp = self.plan
         cells = gp.cells_concat[gp.level_base[lvl]:gp.level_base[lvl + 1]]
-        self._chunks[lvl] = self.eng.put_async(
-            self._host_storage[..., cells])
+        with span("stage.chunk"):
+            self._chunks[lvl] = self.eng.put_async(
+                self._host_storage[..., cells])
         self.eng._event("upload", lvl)
 
     def _chunk(self, lvl: int) -> torch.Tensor:
@@ -497,7 +501,7 @@ class DevicePanelStore:
         iperm[(n + 1) * np.arange(M) + n] = 0
         operm = (iperm_nat[None, :] + stride[:, None]).ravel()
         trash = stride + n
-        aux = self.eng.put(np.concatenate([trash, iperm, operm]))
+        aux = self.eng.put_index(np.concatenate([trash, iperm, operm]))
         self.trash = aux[:M]
         self._iperm = aux[M:M + M * (n + 1)]
         self._operm = aux[M + M * (n + 1):]
@@ -534,18 +538,24 @@ class DevicePanelStore:
     def read_into(self, host_storage: np.ndarray) -> None:
         """One bulk device->host transfer of the factored packed panels.  A
         guarded factorization concatenates the per-group status blocks onto
-        the same transfer, so detection costs no extra transfer."""
-        self.finalize()
-        nf = self.factor_ext.shape[-1]
-        if self._status:
-            lead = (self.nmat,) if self.nmat > 1 else ()
-            flat = [st.reshape(lead + (-1,)) for st in self._status]
-            blob = self.eng.get(torch.cat([self.factor_ext] + flat, dim=-1))
-            packed, self._status_host = blob[..., :nf], blob[..., nf:]
-            self._status = []
-        else:
-            packed = self.eng.get(self.factor_ext)
-        host_storage[..., self.plan.cells_concat] = packed[..., :-2]
+        the same transfer, so detection costs no extra transfer.  Spans:
+        ``read_back.copy`` (the concatenation and the copy, which waits for
+        the device work before it) and ``read_back.scatter`` (the host
+        scatter into storage order)."""
+        with span("read_back.copy"):
+            self.finalize()
+            nf = self.factor_ext.shape[-1]
+            if self._status:
+                lead = (self.nmat,) if self.nmat > 1 else ()
+                flat = [st.reshape(lead + (-1,)) for st in self._status]
+                blob = self.eng.get(torch.cat([self.factor_ext] + flat,
+                                              dim=-1))
+                packed, self._status_host = blob[..., :nf], blob[..., nf:]
+                self._status = []
+            else:
+                packed = self.eng.get(self.factor_ext)
+        with span("read_back.scatter"):
+            host_storage[..., self.plan.cells_concat] = packed[..., :-2]
 
     def guard_status(self):
         """Per-group host status blocks in (level, group) dispatch order:
@@ -584,8 +594,11 @@ def _solve_levels(dstore: DevicePanelStore, dy: torch.Tensor) -> torch.Tensor:
 
 def device_solve(dstore: DevicePanelStore, b):
     """Solve A x = b with the device-resident factor: level-scheduled batched
-    forward and backward substitution.  Profiler ranges: ``solve.prepare``
-    (first solve only: the diagonal-block inversions) and ``solve.levels``.
+    forward and backward substitution.  Spans: ``solve.prepare`` (first
+    solve only: the diagonal-block inversions) and ``solve.levels``, which
+    holds ``solve.upload``, ``solve.substitute`` (the level launches) and
+    ``solve.download``; a host ``b``'s permutations into and out of the
+    padded layout are ``solve.permute``, outside ``solve.levels``.
 
     A host ``b`` (numpy) costs one upload and one download.  A resident
     ``b`` (a torch tensor on the store's device) costs no transfer: it is
@@ -594,7 +607,7 @@ def device_solve(dstore: DevicePanelStore, b):
     chain solves without touching the host.  ``b`` is (n,) or (n, k); with
     ``nmat`` > 1, (nmat, n) or (nmat, n, k), all matrices in the same
     dispatches."""
-    with record_function("solve.prepare"):
+    with span("solve.prepare"):
         dstore.ensure_solve_ready()
     sym, eng, M = dstore.sym, dstore.eng, dstore.nmat
     n = sym.n
@@ -609,9 +622,13 @@ def device_solve(dstore: DevicePanelStore, b):
             raise ValueError(f"b must be {lead + (n,)} or {lead + (n, 'k')}, "
                              f"got {tuple(b.shape)}")
         flat = y.to(torch.float64).reshape(M * n, y.shape[-1])
-        with record_function("solve.levels"):
-            dy = eng.stage_rhs(flat, dstore._iperm, dstore.trash)
-            x = eng.unstage_rhs(_solve_levels(dstore, dy), dstore._operm)
+        with span("solve.levels"):
+            with span("solve.upload"):
+                dy = eng.stage_rhs(flat, dstore._iperm, dstore.trash)
+            with span("solve.substitute"):
+                dy = _solve_levels(dstore, dy)
+            with span("solve.download"):
+                x = eng.unstage_rhs(dy, dstore._operm)
         x = x.reshape(y.shape)
         return x[..., 0] if squeeze else x
     y = np.asarray(b, dtype=np.float64)
@@ -622,11 +639,18 @@ def device_solve(dstore: DevicePanelStore, b):
         raise ValueError(f"b must be {lead + (n,)} or {lead + (n, 'k')} with "
                          f"n = {n}, got {np.shape(b)}")
     k = y.shape[-1]
-    yp = np.zeros(lead + (n + 1, k))
-    yp[..., :n, :] = y[..., sym.perm, :]
-    with record_function("solve.levels"):
-        z = eng.get(_solve_levels(dstore, eng.put(yp.reshape(-1, k))))
-    z = z.reshape(lead + (n + 1, k))[..., :n, :]
-    x = np.empty_like(z)
-    x[..., sym.perm, :] = z
+    with span("solve.permute"):
+        yp = np.zeros(lead + (n + 1, k))
+        yp[..., :n, :] = y[..., sym.perm, :]
+    with span("solve.levels"):
+        with span("solve.upload"):
+            dy = eng.put(yp.reshape(-1, k))
+        with span("solve.substitute"):
+            dy = _solve_levels(dstore, dy)
+        with span("solve.download"):
+            z = eng.get(dy)
+    with span("solve.permute"):
+        z = z.reshape(lead + (n + 1, k))[..., :n, :]
+        x = np.empty_like(z)
+        x[..., sym.perm, :] = z
     return x[..., 0] if squeeze else x

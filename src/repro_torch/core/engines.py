@@ -197,7 +197,10 @@ class DeviceEngine:
                   the oracle
     events_cap    ring-buffer bound of ``events``
     stats         transfers_in/out, bytes_in/out and device_calls, counted
-                  as the reference counts them
+                  as the reference counts them, and ``index_bytes_in``, the
+                  port's own: the part of ``bytes_in`` that was index arrays
+                  (``put_index``), so ``bytes_in - index_bytes_in`` is the
+                  value bytes
     events        ordered issue log of (tag, level) upload/dispatch events —
                   the evidence that level k+1's upload is issued before
                   level k is dispatched; reset at the start of every
@@ -222,7 +225,8 @@ class DeviceEngine:
         self.fused = bool(fused)
         self.fused_groups = bool(fused_groups)
         self.stats = {"transfers_in": 0, "transfers_out": 0,
-                      "bytes_in": 0, "bytes_out": 0, "device_calls": 0}
+                      "bytes_in": 0, "bytes_out": 0, "device_calls": 0,
+                      "index_bytes_in": 0}
         self.events: deque = deque(maxlen=events_cap)
         self.events_overflowed = False
         self.faults = None
@@ -253,6 +257,13 @@ class DeviceEngine:
         self._count_in(x)
         # a copy on the CPU too: callers may write to what they staged
         return torch.from_numpy(x).to(self.device, copy=True)
+
+    def put_index(self, x: np.ndarray) -> torch.Tensor:
+        """``put`` of an index array, its bytes counted in ``bytes_in`` and
+        in ``index_bytes_in``."""
+        out = self.put(x)
+        self.stats["index_bytes_in"] += x.nbytes
+        return out
 
     def put_async(self, x: np.ndarray) -> Upload:
         """Host -> device transfer (counted) that overlaps device work: on a

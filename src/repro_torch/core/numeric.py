@@ -32,7 +32,6 @@ from dataclasses import dataclass
 import numpy as np
 import scipy.linalg as sla
 import scipy.sparse as sp
-from torch.profiler import record_function
 
 from repro_torch.core.relind import (
     ancestor_updates,
@@ -40,6 +39,7 @@ from repro_torch.core.relind import (
     supernode_blocks,
 )
 from repro_torch.core.schedule import cached_schedule
+from repro_torch.core.spans import span
 from repro_torch.core.symbolic import SymbolicFactor
 
 
@@ -522,20 +522,23 @@ def _factorize_levels_device(
     for bit; on ``"batch"`` the other grouping of the prefix sums moves the
     factor by rounding at the scale of their running totals.
 
-    Its phases are ``torch.profiler`` ranges (``factor.fill``,
-    ``factor.stage``, ``factor.levels``, ``factor.read_back``), cheap when
-    no profiler runs.  None synchronises the device, so
-    ``factor.read_back`` also waits for the levels' device work."""
+    Its phases are spans (``core/spans.py``): ``factor.fill``,
+    ``factor.stage`` (holding ``stage.index`` and level 0's
+    ``stage.chunk``), ``factor.levels`` (the later levels' ``stage.chunk``
+    and the group dispatches), ``factor.read_back`` (``read_back.copy``,
+    ``read_back.scatter``), then ``guard.report``.  None synchronises the
+    device, so ``read_back.copy`` also waits for the levels' device
+    work."""
     from repro_torch.core.device_store import DevicePanelStore
 
     device_engine.reset_events()  # one event log per factorization
     if store is None:
-        with record_function("factor.fill"):
+        with span("factor.fill"):
             store = init_panel_store(sym, Aperm)
     if bucket is None:
         bucket = "fused" if device_engine.fused_groups else "batch"
     sched = cached_schedule(sym, max_batch=max_batch, bucket=bucket)
-    with record_function("factor.stage"):
+    with span("factor.stage"):
         dstore = DevicePanelStore(device_engine, sym, sched, store.storage,
                                   staging=staging, guard=guard is not None,
                                   guard_thr=guard_thr,
@@ -551,7 +554,7 @@ def _factorize_levels_device(
         "schedule": sched.batch_stats(),
         "level_stats": [],
     }
-    with record_function("factor.levels"):
+    with span("factor.levels"):
         for lvl, lgroups in enumerate(sched.groups):
             # double buffering: issue the next level's chunk upload BEFORE
             # this level's dispatches
@@ -566,13 +569,14 @@ def _factorize_levels_device(
                 lrec["on_device"] += nb
                 lrec["max_batch"] = max(lrec["max_batch"], nb)
             stats["level_stats"].append(lrec)
-    with record_function("factor.read_back"):
+    with span("factor.read_back"):
         dstore.read_into(store.storage)  # ONE bulk factor read-back
         device_engine.flush()
     report = None
     if guard is not None:
-        report = _reduce_guard(sym, sched, dstore.guard_status(),
-                               mode=guard, thr=guard_thr)
+        with span("guard.report"):
+            report = _reduce_guard(sym, sched, dstore.guard_status(),
+                                   mode=guard, thr=guard_thr)
         stats["guard"] = guard
     return CholeskyFactor(
         sym=sym, panels=store.panels, stats=stats, store=store, dstore=dstore,
@@ -699,9 +703,9 @@ def factorize_levels_device_many(
     (``CachedPlan.fill_storage`` per row), and every (level x bucket) group
     runs as a single ``fused_group_many`` dispatch whose kernel call stacks
     all M matrices' lanes.  Per-group dispatch overhead is paid once per
-    group instead of once per (matrix, group).  Profiler ranges as
+    group instead of once per (matrix, group).  Spans as
     ``_factorize_levels_device``: ``factor.stage``, ``factor.levels``,
-    ``factor.read_back``."""
+    ``factor.read_back`` and their children, ``guard.report``."""
     from repro_torch.core.device_store import DevicePanelStore
 
     device_engine.reset_events()
@@ -710,7 +714,7 @@ def factorize_levels_device_many(
         raise ValueError("multi-matrix factorization requires fused groups")
     bucket = "fused"
     sched = cached_schedule(sym, max_batch=max_batch, bucket=bucket)
-    with record_function("factor.stage"):
+    with span("factor.stage"):
         dstore = DevicePanelStore(device_engine, sym, sched, storage,
                                   staging=staging, nmat=M,
                                   guard=guard is not None,
@@ -726,22 +730,23 @@ def factorize_levels_device_many(
         "supernodes_total": sym.nsuper,
         "schedule": sched.batch_stats(),
     }
-    with record_function("factor.levels"):
+    with span("factor.levels"):
         for lvl, lgroups in enumerate(sched.groups):
             dstore.prefetch_level(lvl + 1)
             for gi in range(len(lgroups)):
                 dstore.assemble_group(lvl, gi)
-    with record_function("factor.read_back"):
+    with span("factor.read_back"):
         dstore.read_into(storage)  # ONE bulk read-back of all M factors
         device_engine.flush()
     reports = None
     if guard is not None:
-        stat = dstore.guard_status()
-        reports = [
-            _reduce_guard(sym, sched, [st[m] for st in stat],
-                          mode=guard, thr=guard_thr)
-            for m in range(M)
-        ]
+        with span("guard.report"):
+            stat = dstore.guard_status()
+            reports = [
+                _reduce_guard(sym, sched, [st[m] for st in stat],
+                              mode=guard, thr=guard_thr)
+                for m in range(M)
+            ]
         stats["guard"] = guard
     return BatchCholeskyFactor(
         sym=sym, nmat=M, storage=storage, stats=stats, dstore=dstore,

@@ -37,6 +37,7 @@ from repro_torch.core import cholesky, cholesky_many, counters
 from repro_torch.core.engines import DeviceEngine
 from repro_torch.core.guard import BadMatrixError, BreakdownError
 from repro_torch.core.plan_cache import PlanCache
+from repro_torch.core.spans import span
 
 #: a refined solve that cannot push the relative residual below this is
 #: served (best effort) but marks its factor dirty — the factor is evicted
@@ -134,16 +135,20 @@ class CholeskyServer:
     # -- request handlers ---------------------------------------------------
     def _plan_for(self, A):
         """Plan-cache lookup with the zero-rebuild guarantee enforced: a
-        repeat pattern (memory OR disk hit) must not rebuild anything."""
-        hits0 = self.cache.stats["hits"] + self.cache.stats["disk_hits"]
-        before = counters.snapshot()
-        plan = self.cache.get(A)
-        hit = (self.cache.stats["hits"] + self.cache.stats["disk_hits"]) > hits0
-        if hit:
-            self.stats.repeat_rebuilds += sum(counters.delta(before).values())
-        elif self.verify:
-            self._verify_plan(plan)
-        return plan
+        repeat pattern (memory OR disk hit) must not rebuild anything.
+        Span ``serve.plan`` (on a miss, the build too)."""
+        with span("serve.plan"):
+            hits0 = self.cache.stats["hits"] + self.cache.stats["disk_hits"]
+            before = counters.snapshot()
+            plan = self.cache.get(A)
+            hit = (self.cache.stats["hits"]
+                   + self.cache.stats["disk_hits"]) > hits0
+            if hit:
+                self.stats.repeat_rebuilds += sum(
+                    counters.delta(before).values())
+            elif self.verify:
+                self._verify_plan(plan)
+            return plan
 
     # -- opt-in verification ------------------------------------------------
     def _record_findings(self, findings, what: str) -> None:
@@ -270,7 +275,9 @@ class CholeskyServer:
         """Serve one request, never raising: returns ``{"ok": True,
         "result": ...}`` or ``{"ok": False, "error": {...}}`` with the
         failure classified (breakdown / bad_input / failure) and counted.
-        A guarded rejection carries the structured GuardReport dict."""
+        A guarded rejection carries the structured GuardReport dict.  The
+        request is the span ``serve.<kind>``, the parent of every span of
+        the port that it opens."""
         ops = {"factor": self.factor, "factor_many": self.factor_many,
                "solve": self.solve, "release": self.release}
         if kind not in ops:
@@ -279,7 +286,8 @@ class CholeskyServer:
                                            "type": "ValueError",
                                            "message": f"unknown request kind {kind!r}"}}
         try:
-            return {"ok": True, "result": ops[kind](*args, **kw)}
+            with span(f"serve.{kind}"):
+                return {"ok": True, "result": ops[kind](*args, **kw)}
         except BreakdownError as e:
             self.stats.breakdowns += 1
             return {"ok": False, "error": {
