@@ -2,12 +2,14 @@
 
 Port of ``src/repro/core/device_store.py``.  The host PanelStore keeps the
 whole factor in ONE flat float64 array.  This module moves the numeric phase
-onto the device: the index plan is staged once, each level's raw storage is
-staged as one chunk, every (level x bucket) group — panel gather, update
-application, fused POTRF+TRSM+SYRK, packing — runs as one engine dispatch,
-and the finished factor comes back in one transfer: O(1) host<->device
-transfers per factorization.  The device-resident factor then serves
-``CholeskyFactor.solve(b, backend="device")`` without re-staging.
+onto the device.  The index plan is uploaded on the first store of a plan on
+an engine and stays resident there for every later store of the pattern.
+Each level's raw storage is staged as one chunk, every (level x bucket)
+group — panel gather, update application, fused POTRF+TRSM+SYRK, packing —
+runs as one engine dispatch, and the finished factor comes back in one
+transfer: O(1) host<->device transfers per factorization, and no index bytes
+on a refactorization of a known pattern.  The device-resident factor then
+serves ``CholeskyFactor.solve(b, backend="device")`` without re-staging.
 
 Scatter-free assembly (fan-in)
 ------------------------------
@@ -278,11 +280,54 @@ _ORACLE_KINDS = ("cells",) + _KINDS
 _SOLVE_KINDS = ("gidx", "cols", "tails")
 
 
+def _stage_index(eng, gp: DeviceGroupPlan, kinds: tuple):
+    """Every group's ``kinds`` index arrays on the device: concatenated on
+    the host, sent in ONE ``put_index``, widened to int64 and sliced and
+    reshaped per group.  Returns, level by level, each group's ``_DevGroup``
+    index fields (``rows``/``ws`` as int32; a kind not staged is empty),
+    and the device bytes they hold."""
+    parts = [getattr(g, k).ravel()
+             for lvl in gp.groups for g in lvl for k in kinds]
+    flat = (np.concatenate(parts) if parts
+            else np.zeros(0, dtype=np.int32))
+    dflat = eng.put_index(flat).long()
+    empty = dflat[0:0]
+    out: list = []
+    pos, nbytes = 0, dflat.nbytes
+    for lvl in gp.groups:
+        row = []
+        for g in lvl:
+            devs = {}
+            for k in kinds:
+                a = getattr(g, k)
+                devs[k] = dflat[pos:pos + a.size].reshape(a.shape)
+                pos += a.size
+            row.append(dict(
+                cells=devs.get("cells", empty),
+                src=devs.get("src", empty), lo=devs.get("lo", empty),
+                hi=devs.get("hi", empty), gidx=devs["gidx"],
+                ppack=devs.get("ppack", empty),
+                upack=devs.get("upack", empty),
+                rows=devs.get("rows_arr", empty).to(torch.int32),
+                ws=devs.get("ws_arr", empty).to(torch.int32),
+                cols=devs["cols"], tails=devs["tails"],
+            ))
+            nbytes += row[-1]["rows"].nbytes + row[-1]["ws"].nbytes
+        out.append(row)
+    return out, nbytes
+
+
 class DevicePanelStore:
     """The flat PanelStore factorization state, resident on the device.
 
-    Construction uploads every group's index arrays in ONE transfer (sliced
-    and reshaped on the device).  ``staging`` picks how the raw storage,
+    Construction takes every group's index arrays from the engine's
+    resident copy (``DeviceEngine.resident_index``): the first store of a
+    plan on an engine uploads them in ONE transfer (sliced and reshaped on
+    the device), and every later store of that plan, a refactorization
+    with new values, reuses them with no transfer.  The tensors are shared
+    with those stores; each store wraps them in its own groups, whose
+    ``P``, ``Dinv`` and multi-matrix ``cols``/``tails`` are its own, and
+    nothing writes into them.  ``staging`` picks how the raw storage,
     packed in group (= level) order, reaches the device:
 
         'async'  per-level chunks, each sent by ``eng.put_async`` BEFORE the
@@ -305,8 +350,9 @@ class DevicePanelStore:
 
     ``factored=True`` stages an already-factored host storage instead (a
     factor of the sequential or mixed paths, or one carried across from
-    another package): only the solve's index arrays and the packed factor
-    go up, in two transfers, and nothing is factored.
+    another package): only the solve's index arrays (on the plan's first
+    store on the engine) and the packed factor go up, in at most two
+    transfers, and nothing is factored.
 
     ``nmat`` > 1 is the multi-matrix layout: ``host_storage`` is (nmat,
     cells), nmat value streams over ONE pattern; every value buffer
@@ -362,34 +408,14 @@ class DevicePanelStore:
         with span("stage.index"):
             kinds = (_SOLVE_KINDS if factored
                      else _KINDS if self.fused else _ORACLE_KINDS)
-            parts = [getattr(g, k).ravel()
-                     for lvl in gp.groups for g in lvl for k in kinds]
-            flat = (np.concatenate(parts) if parts
-                    else np.zeros(0, dtype=np.int32))
-            dflat = eng.put_index(flat).long()
-            empty = dflat[0:0]
-            self.groups: list = []
-            pos = 0
-            for lvl in gp.groups:
-                row = []
-                for g in lvl:
-                    devs = {}
-                    for k in kinds:
-                        a = getattr(g, k)
-                        devs[k] = dflat[pos:pos + a.size].reshape(a.shape)
-                        pos += a.size
-                    row.append(_DevGroup(
-                        cells=devs.get("cells", empty),
-                        src=devs.get("src", empty), lo=devs.get("lo", empty),
-                        hi=devs.get("hi", empty), gidx=devs["gidx"],
-                        ppack=devs.get("ppack", empty),
-                        upack=devs.get("upack", empty),
-                        rows=devs.get("rows_arr", empty).to(torch.int32),
-                        ws=devs.get("ws_arr", empty).to(torch.int32),
-                        cols=devs["cols"], tails=devs["tails"],
-                        off=g.off, base=g.base, lb=g.lb,
-                    ))
-                self.groups.append(row)
+            fields = eng.resident_index(
+                gp, kinds, lambda: _stage_index(eng, gp, kinds))
+            # each store wraps the shared tensors in its own groups: P, Dinv
+            # and the multi-matrix cols/tails are the store's
+            self.groups: list = [
+                [_DevGroup(off=g.off, base=g.base, lb=g.lb, **f)
+                 for g, f in zip(lvl, frow)]
+                for lvl, frow in zip(gp.groups, fields)]
         self.factor_ext = None
         self._packed: list = []
         self._solve_ready = False

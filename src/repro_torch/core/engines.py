@@ -55,6 +55,7 @@ host.
 """
 from __future__ import annotations
 
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from types import SimpleNamespace
@@ -114,6 +115,22 @@ class Upload:
     tensor: torch.Tensor
     done: object = None
     host: torch.Tensor | None = None
+
+
+@dataclass
+class _IndexEntry:
+    """One resident index plan: its device tensors, their bytes and the
+    finalizer that drops the entry when the plan dies."""
+    value: object
+    nbytes: int
+    done: weakref.finalize
+
+
+def _forget_index(eref, key) -> None:
+    """A plan died: drop its entry from the engine, if that still lives."""
+    eng = eref()
+    if eng is not None:
+        eng._forget(key)
 
 
 #: the index arrays and offsets of a group that ``_group_math`` reads
@@ -200,7 +217,10 @@ class DeviceEngine:
                   as the reference counts them, and ``index_bytes_in``, the
                   port's own: the part of ``bytes_in`` that was index arrays
                   (``put_index``), so ``bytes_in - index_bytes_in`` is the
-                  value bytes
+                  value bytes.  A plan's group index arrays stay resident
+                  (``resident_index``), so they count once per engine, at
+                  the first store of the plan; the solve's permutations
+                  count once per factor
     events        ordered issue log of (tag, level) upload/dispatch events —
                   the evidence that level k+1's upload is issued before
                   level k is dispatched; reset at the start of every
@@ -210,6 +230,10 @@ class DeviceEngine:
     fallbacks     steps down the group fallback chain by tier, and groups
                   that failed (not in ``stats``, which callers compare
                   whole)
+    index_cache   the resident index plans (``resident_index``): ``hits``
+                  and ``misses`` of their lookups and the device bytes
+                  they hold, ``resident_bytes`` (apart from ``stats`` for
+                  the same reason)
     scan_peak     the three-dispatch oracle's largest running total
                   ``max |C|`` of its prefix sums, a device scalar (None
                   before a group with pending updates): the scale of the
@@ -233,6 +257,8 @@ class DeviceEngine:
         self.fallbacks = {"plain": 0, "host": 0, "failed": 0}
         self.scan_peak = None
         self._copy_stream = None
+        self.index_cache = {"hits": 0, "misses": 0, "resident_bytes": 0}
+        self._index: dict = {}
 
     def _event(self, tag: str, lvl: int) -> None:
         if len(self.events) == self.events.maxlen:
@@ -254,9 +280,10 @@ class DeviceEngine:
         if self.faults is not None:
             x = self.faults.on_put(self, x)
         x = np.ascontiguousarray(x)
-        self._count_in(x)
         # a copy on the CPU too: callers may write to what they staged
-        return torch.from_numpy(x).to(self.device, copy=True)
+        out = torch.from_numpy(x).to(self.device, copy=True)
+        self._count_in(x)  # only once the bytes have crossed
+        return out
 
     def put_index(self, x: np.ndarray) -> torch.Tensor:
         """``put`` of an index array, its bytes counted in ``bytes_in`` and
@@ -264,6 +291,44 @@ class DeviceEngine:
         out = self.put(x)
         self.stats["index_bytes_in"] += x.nbytes
         return out
+
+    # -- resident index plans ----------------------------------------------
+    def resident_index(self, plan, kinds: tuple, build):
+        """The device index tensors of ``plan`` (a ``DeviceGroupPlan``) for
+        ``kinds``: ``build()`` makes them and their device bytes on this
+        engine's first request (a miss), and every later request of the same plan and kinds gets
+        the same tensors back (a hit), with no transfer.  They are shared:
+        nothing may write into them.  The entry dies with its plan (a
+        ``weakref.finalize``), so the engine never holds more plans than
+        live elsewhere.  If ``build`` runs out of device memory, every
+        other entry is dropped, the allocator's cache emptied, and it runs
+        once more."""
+        key = (id(plan), kinds)
+        ent = self._index.get(key)
+        if ent is not None:
+            self.index_cache["hits"] += 1
+            return ent.value
+        try:
+            value, nbytes = build()
+        except torch.cuda.OutOfMemoryError:
+            for k in list(self._index):
+                self._forget(k)
+            torch.cuda.empty_cache()
+            value, nbytes = build()
+        self.index_cache["misses"] += 1
+        done = weakref.finalize(plan, _forget_index, weakref.ref(self), key)
+        done.atexit = False
+        self._index[key] = _IndexEntry(value, nbytes, done)
+        self.index_cache["resident_bytes"] += nbytes
+        return value
+
+    def _forget(self, key) -> None:
+        """Drop one resident index entry (the tensors live on while a
+        store still holds them)."""
+        ent = self._index.pop(key, None)
+        if ent is not None:
+            ent.done.detach()
+            self.index_cache["resident_bytes"] -= ent.nbytes
 
     def put_async(self, x: np.ndarray) -> Upload:
         """Host -> device transfer (counted) that overlaps device work: on a

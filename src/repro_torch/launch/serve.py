@@ -305,6 +305,9 @@ class CholeskyServer:
                 "message": str(e)}}
 
     def report(self) -> dict:
+        """Throughput and the counts behind it: the plan cache, the
+        engine's ``stats`` and ``fallbacks``, and its ``index_cache`` (the
+        resident index plans' hits, misses and device bytes)."""
         rep = self.stats.throughput()
         rep["cache"] = dict(self.cache.stats)
         rep["patterns"] = len(self.cache)
@@ -312,6 +315,7 @@ class CholeskyServer:
         rep["guard"] = self.guard
         rep["degraded"] = self.stats.degraded()
         rep["fallbacks"] = dict(self.engine.fallbacks)
+        rep["index_cache"] = dict(self.engine.index_cache)
         if self.verify:
             by_sev: dict = {}
             for f in self.verify_findings:
@@ -464,6 +468,7 @@ def main():
           f"({rep['solves_per_s']:.2f}/s)")
     print(f"  plan cache:     {rep['cache']} "
           f"repeat_rebuilds={rep['repeat_rebuilds']}")
+    print(f"  index cache:    {rep['index_cache']}")
     print(f"  guard={rep['guard']}  degraded: {rep['degraded']}  "
           f"fallbacks: {rep['fallbacks']}  rejected={rep['rejected']}")
     print(f"  max solve resid: {rep.get('max_solve_resid', float('nan')):.2e}")

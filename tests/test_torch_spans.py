@@ -3,7 +3,8 @@ the CPU: a guarded factor, a solve and a two-matrix ``factor_many`` through
 ``CholeskyServer.handle`` under ``torch.profiler`` export every span of the
 served path, each inside the parent it belongs to; with no profiler a span
 is the shared null context; ``index_bytes_in`` counts the index plan's one
-upload and nothing of the values, and no rebuild."""
+upload on the first request of a pattern, none on a repeat and nothing of
+the values, and no rebuild."""
 import json
 
 import numpy as np
@@ -142,18 +143,27 @@ def test_without_a_profiler_a_span_is_the_shared_null_context(monkeypatch):
 
 
 def test_index_bytes_count_the_index_plan_and_no_rebuild():
+    """The first factor request of a pattern uploads its index plan; the
+    repeat, new values of the same pattern, finds it resident on the
+    server's engine and uploads only the values, with no rebuild."""
     A = laplacian_3d(5)
     srv = CholeskyServer(device="cpu", guard="off")
-    srv.release(srv.handle("factor", A)["result"])
-    st0 = dict(srv.engine.stats)
-    before = counters.snapshot()
-    h = srv.handle("factor", sp.csc_matrix(A * 2.0))["result"]
-    assert counters.snapshot() == before
+    grew = []
+    for k, Ak in enumerate((A, sp.csc_matrix(A * 2.0))):
+        st0 = dict(srv.engine.stats)
+        before = counters.snapshot()
+        h = srv.handle("factor", Ak)["result"]
+        if k:
+            assert counters.snapshot() == before
+        grew.append({key: srv.engine.stats[key] - st0[key] for key in st0})
+        gp = srv.factors[h].dstore.plan
+        srv.release(h)
     assert srv.stats.repeat_rebuilds == 0
-    grew = {k: srv.engine.stats[k] - st0[k] for k in st0}
-    gp = srv.factors[h].dstore.plan
     want = sum(getattr(g, k).nbytes for lvl in gp.groups for g in lvl
                for k in _KINDS)
-    assert grew["index_bytes_in"] == want > 0
+    assert [g["index_bytes_in"] for g in grew] == [want, 0] and want > 0
     # what is left of bytes_in is the values: 8 bytes a packed cell
-    assert grew["bytes_in"] - grew["index_bytes_in"] == 8 * gp.packed_total
+    for g in grew:
+        assert g["bytes_in"] - g["index_bytes_in"] == 8 * gp.packed_total
+    assert {k: srv.report()["index_cache"][k] for k in ("hits", "misses")} \
+        == {"hits": 1, "misses": 1}
