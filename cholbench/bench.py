@@ -5,6 +5,7 @@ found by the name that ``BENCHMARK.json`` gives it:
 
     configs/<config>.json       the deployment: generator, sizes, values,
                                 guard, the check's limits
+                                (``small``: its sizes in the CPU tests)
     matrices/<generator>.py     ``make(**params)``: the matrix
     traffic/<traffic>.json      the mix's parameters, naming its loop
     loops/<loop>.py             ``prepare``, ``warm``, ``window``,

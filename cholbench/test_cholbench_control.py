@@ -10,20 +10,16 @@ import numpy as np
 import pytest
 
 from cholbench import bench
+from cholbench.testing import small_cell
 from repro_torch.launch.serve import CholeskyServer
 
 SPEC = bench.load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
-SMALL = {"poisson3d_48": {"nx": 6}, "elasticity3d_32": {"nx": 4}}
-
-
-def _cell(name):
-    return bench.Cell(SPEC, name, params=SMALL[name.split(".")[0]])
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_the_control_fails_where_the_port_passes(name):
-    cell = _cell(name)
+    cell = small_cell(SPEC, name)
     A = cell.generator.make(**cell.cfg["params"])
     st = cell.loop.prepare(A, cell.cfg, cell.traffic, 2 ** 31 + 5)
     srv = CholeskyServer(device="cpu", guard=cell.cfg["guard"])
@@ -101,11 +97,12 @@ def _altered(monkeypatch):
     monkeypatch.setattr(CholeskyServer, "solve", altered_solve)
 
 
-def _faults():
-    """Each fault a cell can have (one right-hand side a request has no
-    batch to halve)."""
-    for name in CELLS:
-        nrhs = _cell(name).traffic.get("nrhs")
+def _faults(spec=SPEC, root=bench.ROOT):
+    """Each fault a cell of ``spec`` can have (one right-hand side a
+    request has no batch to halve)."""
+    for w in spec["workloads"]:
+        name = w["name"]
+        nrhs = bench.Cell(spec, name, root=root).traffic.get("nrhs")
         for fault in (_stale, _half, _altered):
             if not (fault is _half and nrhs == 1):
                 yield name, fault
@@ -113,7 +110,7 @@ def _faults():
 
 @pytest.mark.parametrize("name,fault", list(_faults()))
 def test_a_broken_served_path_reads_not_correct(name, fault, monkeypatch):
-    cell = _cell(name)
+    cell = small_cell(SPEC, name)
     fault(monkeypatch)
     line, checks = bench.run(cell, seed=2 ** 31 + 17, seconds=0.3,
                              trace=False, t_start=time.perf_counter(),

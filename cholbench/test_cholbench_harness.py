@@ -13,15 +13,15 @@ import pytest
 
 from cholbench import bench, readers, trace
 from cholbench.client import Window
+from cholbench.testing import small_cell
 
 SPEC = bench.load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
-SMALL = {"poisson3d_48": {"nx": 6}, "elasticity3d_32": {"nx": 4}}
 ENV = dict(os.environ, PYTHONPATH=str(bench.ROOT / "src"))
 
 
-def _run(name, trace_on, seed=2 ** 31 + 99):
-    cell = bench.Cell(SPEC, name, params=SMALL[name.split(".")[0]])
+def _run(name, trace_on, seed=2 ** 31 + 99, spec=SPEC, root=bench.ROOT):
+    cell = small_cell(spec, name, root)
     t = time.perf_counter()
     return cell, bench.run(cell, seed=seed, seconds=0.3, trace=trace_on,
                            t_start=t, clock=time.perf_counter, device="cpu")
@@ -30,7 +30,11 @@ def _run(name, trace_on, seed=2 ** 31 + 99):
 @pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("trace_on", [False, True])
 def test_a_run_on_the_cpu_gives_a_whole_line(name, trace_on):
-    cell, (line, checks) = _run(name, trace_on)
+    _check_whole_line(*_run(name, trace_on), trace_on)
+
+
+def _check_whole_line(cell, result, trace_on):
+    line, checks = result
     assert list(line)[:5] == ["correct", "attempted", "failed", "metrics",
                               "device"]
     assert list(line)[-1] == "checks"
@@ -46,7 +50,7 @@ def test_a_run_on_the_cpu_gives_a_whole_line(name, trace_on):
     got = {k: v["unit"] for k, v in line["metrics"].items()}
     if trace_on:
         # the CPU has no device trace: the device readers find nothing
-        device = {m["name"] for m in SPEC["per_layer"]
+        device = {m["name"] for m in cell.spec["per_layer"]
                   if m["source"] == "device_trace"}
         assert got == {k: u for k, u in want.items() if k not in device}
         assert "breakdown" in line and line["device"]["window_s"] > 0
@@ -57,7 +61,7 @@ def test_a_run_on_the_cpu_gives_a_whole_line(name, trace_on):
 
 def test_every_cell_reports_setup_another_end_to_end_and_a_layer():
     for name in CELLS:
-        cell = bench.Cell(SPEC, name, params=SMALL[name.split(".")[0]])
+        cell = small_cell(SPEC, name)
         e2e = {m["name"] for m in cell.metrics("end_to_end")}
         assert "setup_s" in e2e and len(e2e) >= 2
         assert cell.metrics("per_layer")
@@ -181,12 +185,13 @@ def test_readers_on_a_hand_made_trace():
     assert read("solve_s") is None and read("solve_device_ms.solve") is None
 
 
-REFACTOR = [n for n in CELLS if n.endswith(".refactor")]
+REFACTOR = [n for n in CELLS
+            if bench.Cell(SPEC, n).traffic["loop"] == "refactor"]
 
 
 @pytest.mark.parametrize("name", REFACTOR)
 def test_every_refactor_request_sends_values_no_earlier_one_sent(name):
-    cell = bench.Cell(SPEC, name, params=SMALL[name.split(".")[0]])
+    cell = small_cell(SPEC, name)
     A = cell.generator.make(**cell.cfg["params"])
     st = cell.loop.prepare(A, cell.cfg, cell.traffic, 2 ** 31 + 3)
     gen = st.requests()

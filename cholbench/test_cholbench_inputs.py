@@ -5,14 +5,14 @@ import pytest
 import scipy.sparse as sp
 
 from cholbench import bench, work
+from cholbench.testing import small_cell
 
 SPEC = bench.load_spec()
 CELLS = [w["name"] for w in SPEC["workloads"]]
-SMALL = {"poisson3d_48": {"nx": 6}, "elasticity3d_32": {"nx": 4}}
 
 
-def _inputs(name, seed):
-    cell = bench.Cell(SPEC, name, params=SMALL[name.split(".")[0]])
+def _inputs(name, seed, spec=SPEC, root=bench.ROOT):
+    cell = small_cell(spec, name, root)
     A = cell.generator.make(**cell.cfg["params"])
     st = cell.loop.prepare(A, cell.cfg, cell.traffic, seed)
     arrays = [A.data, A.indices, A.indptr, st.order]
@@ -36,7 +36,7 @@ def test_inputs_repeat_for_a_seed_and_differ_for_another(name):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_value_sets_keep_the_pattern_and_symmetry(name):
-    cell = bench.Cell(SPEC, name, params=SMALL[name.split(".")[0]])
+    cell = small_cell(SPEC, name)
     A = cell.generator.make(**cell.cfg["params"])
     st = cell.loop.prepare(A, cell.cfg, cell.traffic, 7)
     M = st.vs.matrix(st.vs.draw(np.random.default_rng(1)))
