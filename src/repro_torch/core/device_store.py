@@ -7,9 +7,11 @@ an engine and stays resident there for every later store of the pattern.
 Each level's raw storage is staged as one chunk, every (level x bucket)
 group — panel gather, update application, fused POTRF+TRSM+SYRK, packing —
 runs as one engine dispatch, and the finished factor comes back in one
-transfer: O(1) host<->device transfers per factorization, and no index bytes
-on a refactorization of a known pattern.  The device-resident factor then
-serves ``CholeskyFactor.solve(b, backend="device")`` without re-staging.
+transfer, reordered into storage order on the device and landed in the
+engine's reused pinned buffer: O(1) host<->device transfers per
+factorization, and no index bytes on a refactorization of a known pattern.
+The device-resident factor then serves ``CholeskyFactor.solve(b,
+backend="device")`` without re-staging.
 
 Scatter-free assembly (fan-in)
 ------------------------------
@@ -278,6 +280,31 @@ _KINDS = ("src", "lo", "hi", "gidx", "ppack", "upack", "rows_arr", "ws_arr",
 _ORACLE_KINDS = ("cells",) + _KINDS
 #: the ones a store of an already-factored storage needs (the solve's)
 _SOLVE_KINDS = ("gidx", "cols", "tails")
+#: the read-back's reorder index, a resident entry of its own
+_READBACK_KINDS = ("storage_order",)
+
+
+def _storage_order(fields, packed_total: int):
+    """The storage cell of every packed slot (the plan's ``cells_concat``)
+    as an int64 device tensor, made on the device from the resident lane
+    extents and first columns, with no transfer.  Supernode ``s`` fills
+    ``rows * w`` consecutive slots from its lane's packed start and the
+    same number of cells from ``offs[s]``, the sizes of the supernodes
+    before it (supernodes are numbered in column order), so each slot is
+    shifted by its lane's ``offs - start``.  Pad lanes are empty."""
+    lanes = [f for row in fields for f in row]
+    rows = torch.cat([f["rows"] for f in lanes]).long()
+    ws = torch.cat([f["ws"] for f in lanes]).long()
+    first = torch.cat([f["cols"][:, 0] for f in lanes])
+    size = rows * ws
+    start = torch.cumsum(size, 0) - size
+    by_col = torch.argsort(first, stable=True)
+    offs = torch.empty_like(size)
+    offs[by_col] = torch.cumsum(size[by_col], 0) - size[by_col]
+    shift = torch.repeat_interleave(offs - start, size,
+                                    output_size=packed_total)
+    order = torch.arange(packed_total, device=shift.device) + shift
+    return order, order.nbytes
 
 
 def _stage_index(eng, gp: DeviceGroupPlan, kinds: tuple):
@@ -345,7 +372,9 @@ class DevicePanelStore:
 
     ``assemble_group`` advances the factorization one (level, bucket)
     dispatch at a time with zero transfers; ``read_into`` brings the factor
-    back in one transfer, and the packed factor stays resident for
+    back in one transfer, in storage order (the reorder index is a resident
+    entry of its own, made on the device from the group index tensors at
+    the plan's first store), and the packed factor stays resident for
     ``device_solve``.
 
     ``factored=True`` stages an already-factored host storage instead (a
@@ -416,6 +445,9 @@ class DevicePanelStore:
                 [_DevGroup(off=g.off, base=g.base, lb=g.lb, **f)
                  for g, f in zip(lvl, frow)]
                 for lvl, frow in zip(gp.groups, fields)]
+            self._order = None if factored else eng.resident_index(
+                gp, _READBACK_KINDS,
+                lambda: _storage_order(fields, gp.packed_total))
         self.factor_ext = None
         self._packed: list = []
         self._solve_ready = False
@@ -562,26 +594,37 @@ class DevicePanelStore:
                 dg.Dinv = self.eng.invert_diag(dg.P)
 
     def read_into(self, host_storage: np.ndarray) -> None:
-        """One bulk device->host transfer of the factored packed panels.  A
-        guarded factorization concatenates the per-group status blocks onto
-        the same transfer, so detection costs no extra transfer.  Spans:
-        ``read_back.copy`` (the concatenation and the copy, which waits for
-        the device work before it) and ``read_back.scatter`` (the host
-        scatter into storage order)."""
+        """The factor back to the host in storage order, in one transfer:
+        the packed panels are reordered on the device (``index_copy_``
+        through the resident storage order) into one image, followed by the
+        zero and one cells and a guarded factorization's per-group status
+        blocks, so detection costs no extra transfer; ``eng.land`` copies
+        the image into the engine's pinned landing buffer, and one
+        contiguous copy puts it into ``host_storage`` (the trash cell
+        untouched).  Spans: ``read_back.copy`` (the reorder and the
+        transfer, which waits for the device work before it) and
+        ``read_back.scatter`` (the copy into the storage)."""
+        total = self.plan.packed_total
         with span("read_back.copy"):
             self.finalize()
-            nf = self.factor_ext.shape[-1]
-            if self._status:
-                lead = (self.nmat,) if self.nmat > 1 else ()
-                flat = [st.reshape(lead + (-1,)) for st in self._status]
-                blob = self.eng.get(torch.cat([self.factor_ext] + flat,
-                                              dim=-1))
-                packed, self._status_host = blob[..., :nf], blob[..., nf:]
-                self._status = []
-            else:
-                packed = self.eng.get(self.factor_ext)
+            ext = self.factor_ext
+            nf = ext.shape[-1]
+            lead = (self.nmat,) if self.nmat > 1 else ()
+            # the zero and one cells travel too, as they always have
+            rest = [ext[..., total:]] + [st.reshape(lead + (-1,))
+                                         for st in self._status]
+            nrest = sum(r.shape[-1] for r in rest)
+            image = torch.empty(lead + (total + nrest,), dtype=ext.dtype,
+                                device=ext.device)
+            image[..., :total].index_copy_(-1, self._order, ext[..., :total])
+            image[..., total:] = torch.cat(rest, dim=-1)
+            landed = self.eng.land(image)
         with span("read_back.scatter"):
-            host_storage[..., self.plan.cells_concat] = packed[..., :-2]
+            host_storage[..., :total] = landed[..., :total]
+            if self._status:
+                # the landing buffer is the engine's: keep a copy
+                self._status_host = landed[..., nf:].copy()
+                self._status = []
 
     def guard_status(self):
         """Per-group host status blocks in (level, group) dispatch order:

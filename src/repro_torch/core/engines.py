@@ -234,6 +234,10 @@ class DeviceEngine:
                   and ``misses`` of their lookups and the device bytes
                   they hold, ``resident_bytes`` (apart from ``stats`` for
                   the same reason)
+    readback      the factor read-back's landing buffer (``land``):
+                  ``reads`` through it, ``grows`` (allocations: the first
+                  read, and any read larger than every one before) and its
+                  bytes, ``pinned_bytes`` (page-locked on a card)
     scan_peak     the three-dispatch oracle's largest running total
                   ``max |C|`` of its prefix sums, a device scalar (None
                   before a group with pending updates): the scale of the
@@ -259,6 +263,8 @@ class DeviceEngine:
         self._copy_stream = None
         self.index_cache = {"hits": 0, "misses": 0, "resident_bytes": 0}
         self._index: dict = {}
+        self.readback = {"reads": 0, "grows": 0, "pinned_bytes": 0}
+        self._landing = None
 
     def _event(self, tag: str, lvl: int) -> None:
         if len(self.events) == self.events.maxlen:
@@ -367,6 +373,27 @@ class DeviceEngine:
         return out
 
     fetch = get  # per-result transfer (RLB's per-block mode)
+
+    def land(self, x: torch.Tensor) -> np.ndarray:
+        """Device -> host transfer (counted) into the engine's landing
+        buffer, returned as a view of ``x``'s shape: valid until the next
+        ``land``, so the caller copies out what it keeps.  The buffer is
+        page-locked on a card, so the copy runs at the link's speed, and
+        grows to the largest read it has seen; every later read reuses it."""
+        n = x.numel()
+        if (self._landing is None or self._landing.numel() < n
+                or self._landing.dtype != x.dtype):
+            self._landing = None  # free the old buffer before the new one
+            self._landing = torch.empty(
+                n, dtype=x.dtype, pin_memory=self.device.type == "cuda")
+            self.readback["grows"] += 1
+            self.readback["pinned_bytes"] = self._landing.nbytes
+        out = self._landing[:n].view(x.shape)
+        out.copy_(x)
+        self.readback["reads"] += 1
+        self.stats["transfers_out"] += 1
+        self.stats["bytes_out"] += out.nbytes
+        return out.numpy()
 
     def gather(self, xs) -> list:
         """Device -> host transfer of many results as ONE transfer (RLB's

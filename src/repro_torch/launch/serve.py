@@ -306,8 +306,10 @@ class CholeskyServer:
 
     def report(self) -> dict:
         """Throughput and the counts behind it: the plan cache, the
-        engine's ``stats`` and ``fallbacks``, and its ``index_cache`` (the
-        resident index plans' hits, misses and device bytes)."""
+        engine's ``stats`` and ``fallbacks``, its ``index_cache`` (the
+        resident index plans' hits, misses and device bytes) and its
+        ``readback`` (the factor read-back's landing buffer: reads, grows
+        and its bytes)."""
         rep = self.stats.throughput()
         rep["cache"] = dict(self.cache.stats)
         rep["patterns"] = len(self.cache)
@@ -316,6 +318,7 @@ class CholeskyServer:
         rep["degraded"] = self.stats.degraded()
         rep["fallbacks"] = dict(self.engine.fallbacks)
         rep["index_cache"] = dict(self.engine.index_cache)
+        rep["readback"] = dict(self.engine.readback)
         if self.verify:
             by_sev: dict = {}
             for f in self.verify_findings:
@@ -469,6 +472,7 @@ def main():
     print(f"  plan cache:     {rep['cache']} "
           f"repeat_rebuilds={rep['repeat_rebuilds']}")
     print(f"  index cache:    {rep['index_cache']}")
+    print(f"  read-back:      {rep['readback']}")
     print(f"  guard={rep['guard']}  degraded: {rep['degraded']}  "
           f"fallbacks: {rep['fallbacks']}  rejected={rep['rejected']}")
     print(f"  max solve resid: {rep.get('max_solve_resid', float('nan')):.2e}")

@@ -165,5 +165,6 @@ def test_index_bytes_count_the_index_plan_and_no_rebuild():
     # what is left of bytes_in is the values: 8 bytes a packed cell
     for g in grew:
         assert g["bytes_in"] - g["index_bytes_in"] == 8 * gp.packed_total
+    # two entries a plan: the group index arrays and the read-back order
     assert {k: srv.report()["index_cache"][k] for k in ("hits", "misses")} \
-        == {"hits": 1, "misses": 1}
+        == {"hits": 2, "misses": 2}
